@@ -1,0 +1,248 @@
+"""Batched-queue inference server for NlosPose, on one device.
+
+Port of ``hiddenpose_tpu/serve.py::InferenceServer``: requests queue; a
+pump thread packs up to ``batch_size`` of them, pads the tail by repeating
+the last request so every batch has the same shape (per-sample results do
+not depend on the batch: eval BatchNorm uses running statistics, GroupNorm
+and the FFT are per-sample), runs the forward and resolves per-request
+futures.
+
+The pipeline is one batch deep, as in the JAX package: CUDA launches are
+asynchronous, so the pump launches batch N+1 (a pinned-memory copy and the
+forward, with no host sync) before it fetches batch N's joints, and the
+device never idles while the host packs and resolves.  All device work
+stays on the pump thread; callers only touch numpy and futures.
+
+Only ``dtype="float32"`` is ported so far.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hiddenpose_tpu_torch.config import Config, t128_config
+from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+from hiddenpose_tpu_torch.train.step import make_forward
+
+_STOP = object()
+
+
+class InferenceServer:
+    """Turns single-capture requests into fixed-batch inference.
+
+    Parameters
+    ----------
+    cfg : model/config preset (default: the t128 configuration).
+    state_dict : model weights in the port's (reference PyTorch) naming,
+        e.g. from ``utils.jax_bridge.state_dict_from_jax``; random weights
+        from ``rng_seed`` when omitted.
+    batch_size : the fixed batch every forward runs at.
+    dtype : 'float32' (the only precision ported so far).
+    max_wait_ms : how long the pump holds an open batch for more arrivals
+        before flushing it padded.
+    device : where the model runs, e.g. 'cuda:0' or 'cpu'.
+    """
+
+    def __init__(
+        self,
+        cfg: Optional[Config] = None,
+        state_dict=None,
+        *,
+        batch_size: int = 8,
+        dtype: str = "float32",
+        max_wait_ms: float = 5.0,
+        rng_seed: int = 0,
+        device="cpu",
+    ):
+        if dtype != "float32":
+            raise NotImplementedError(
+                f"dtype={dtype!r}: only float32 serving is ported")
+        self.cfg = cfg if cfg is not None else t128_config()
+        self.batch_size = int(batch_size)
+        self.max_wait = float(max_wait_ms) / 1000.0
+        self.device = torch.device(device)
+        self.model, self.lct = build_nlospose(
+            self.cfg.model, device=self.device, seed=rng_seed)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        t = self.cfg.model.time_size
+        im = self.cfg.model.image_size[0]
+        self._meas_shape = (1, t, im, im)
+        self._forward = make_forward(self.model)
+        self._q: "queue.Queue" = queue.Queue()
+        self._lock = threading.Lock()
+        self._stats = dict(
+            requests=0, batches=0, padded=0, device_s=0.0, errors=0)
+        self._closed = False
+        self._pump = threading.Thread(
+            target=self._run, name="hp-serve-pump", daemon=True)
+        self._pump.start()
+
+    # -- client API --------------------------------------------------
+
+    def submit(self, meas: np.ndarray) -> Future:
+        """Enqueue one capture; resolves to {'joints': (J, 3) np.float32}.
+
+        Accepts (T, H, W) or (1, T, H, W) float measurement volumes."""
+        if self._closed:
+            raise RuntimeError("server closed")
+        meas = np.asarray(meas, np.float32)
+        if meas.ndim == 3:
+            meas = meas[None]
+        if meas.shape != self._meas_shape:
+            raise ValueError(
+                f"expected meas {self._meas_shape}, got {meas.shape}")
+        fut: Future = Future()
+        self._q.put((meas, fut))
+        return fut
+
+    def infer(self, meas: np.ndarray) -> Dict[str, np.ndarray]:
+        """Synchronous convenience wrapper around submit()."""
+        return self.submit(meas).result()
+
+    def warmup(self) -> None:
+        """Run the serving forward once (kernel build, cuDNN and cuFFT
+        plans) so the first real request does not pay for it."""
+        self.submit(np.zeros(self._meas_shape, np.float32)).result()
+
+    def stats(self) -> Dict[str, float]:
+        """Counters + derived rates.  ``volumes_per_sec`` is a lower bound
+        under load: per-batch launch-to-fetch spans overlap across the
+        one-deep pipeline, so their sum exceeds wall time."""
+        with self._lock:
+            s = dict(self._stats)
+        s["mean_fill"] = (
+            s["requests"] / (s["batches"] * self.batch_size)
+            if s["batches"] else 0.0)
+        s["volumes_per_sec"] = (
+            s["requests"] / s["device_s"] if s["device_s"] > 0 else 0.0)
+        return s
+
+    def close(self) -> None:
+        """Drain in-flight work and stop the pump (idempotent)."""
+        if self._closed:
+            return
+        self._closed = True
+        self._q.put(_STOP)
+        self._pump.join(timeout=600)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- pump --------------------------------------------------------
+
+    def _collect(self) -> Tuple[List, bool]:
+        """Block for one request, then hold the batch open up to max_wait
+        for more (draining whatever is already queued past the deadline).
+        Returns (requests, stop_seen)."""
+        first = self._q.get()
+        if first is _STOP:
+            return [], True
+        reqs = [first]
+        deadline = time.perf_counter() + self.max_wait
+        while len(reqs) < self.batch_size:
+            left = deadline - time.perf_counter()
+            try:
+                nxt = (self._q.get(timeout=left) if left > 0
+                       else self._q.get_nowait())
+            except queue.Empty:
+                break
+            if nxt is _STOP:
+                return reqs, True
+            reqs.append(nxt)
+        return reqs, False
+
+    def _fail(self, reqs, exc) -> None:
+        with self._lock:
+            self._stats["errors"] += 1
+        for _, fut in reqs:
+            fut.set_exception(exc)
+
+    def _launch(self, reqs: List, t0: float):
+        """Queue one padded batch on the device without a host sync.
+        Returns (reqs, device joints, t0), or None after failing the
+        requests' futures."""
+        try:
+            meas = np.stack(
+                [m for m, _ in reqs]
+                + [reqs[-1][0]] * (self.batch_size - len(reqs)))
+            x = torch.from_numpy(meas)
+            if self.device.type == "cuda":
+                x = x.pin_memory().to(self.device, non_blocking=True)
+            else:
+                x = x.to(self.device)
+            joints, _ = self._forward(x, self.lct)
+            return reqs, joints, t0
+        except Exception as e:  # launch failures resolve the futures
+            self._fail(reqs, e)
+            return None
+
+    def _resolve(self, pending) -> None:
+        reqs, joints, t0 = pending
+        n = len(reqs)
+        try:
+            # the device -> host copy is the completion fence
+            joints = joints.cpu().numpy().astype(np.float32)
+            # (B, J*3) flat (x, y, z) triplets -> (B, J, 3)
+            joints = joints.reshape(self.batch_size, -1, 3)
+        except Exception as e:  # execution faults surface at the fetch
+            self._fail(reqs, e)
+            return
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self._stats["requests"] += n
+            self._stats["batches"] += 1
+            self._stats["padded"] += self.batch_size - n
+            self._stats["device_s"] += dt
+        for i, (_, fut) in enumerate(reqs):
+            fut.set_result({"joints": joints[i]})
+
+    def _drain_nowait(self, reqs: List) -> bool:
+        """Top ``reqs`` up from requests already queued; True on _STOP."""
+        while len(reqs) < self.batch_size:
+            try:
+                nxt = self._q.get_nowait()
+            except queue.Empty:
+                return False
+            if nxt is _STOP:
+                return True
+            reqs.append(nxt)
+        return False
+
+    def _run(self) -> None:
+        pending = None
+        stop = False
+        while not stop:
+            if pending is None:
+                reqs, stop = self._collect()
+            else:
+                # Work in flight: take a batch only from requests already
+                # waiting; else resolve the in-flight one first.
+                reqs = []
+                stop = self._drain_nowait(reqs)
+            launched = (self._launch(reqs, time.perf_counter())
+                        if reqs else None)
+            if pending is not None:
+                self._resolve(pending)
+            pending = launched
+        if pending is not None:
+            self._resolve(pending)
+        # resolve anything still queued after close()
+        while True:
+            reqs = []
+            self._drain_nowait(reqs)
+            if not reqs:
+                return
+            launched = self._launch(reqs, time.perf_counter())
+            if launched is not None:
+                self._resolve(launched)

@@ -1,0 +1,43 @@
+"""Seeded random weights that make peaked heatmaps.
+
+The reference initialisation (``models/nlospose.py::init_weights``) gives
+near-uniform heatmaps: every joint sits at the volume centre whatever the
+backbone computed, so a comparison of joints would pass a wrong model.
+These weights keep activations at unit scale through the network (fan-in
+scaled convs, random norm affines and BatchNorm statistics) so the
+heatmaps are peaked and the joints spread over the volume.  Tests and the
+GPU smoke run use them to hold the port against its references.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+
+@torch.no_grad()
+def peaked_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """A CPU state_dict for ``model`` (names and shapes only are read, so
+    a model on the meta device will do), from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    deconvs = {f"{name}.weight" for name, m in model.named_modules()
+               if isinstance(m, nn.ConvTranspose3d)}
+    sd = {}
+    for name, t in model.state_dict().items():
+        shape = t.shape
+        if not t.is_floating_point():  # BN num_batches_tracked
+            v = torch.zeros(shape, dtype=t.dtype)
+        elif name.endswith("running_var"):
+            v = 0.5 + 0.5 * torch.rand(shape, generator=g)
+        elif name.endswith("running_mean") or name.endswith("bias"):
+            v = 0.1 * torch.randn(shape, generator=g)
+        elif t.dim() == 1:  # norm weights
+            v = 1.0 + 0.1 * torch.randn(shape, generator=g)
+        else:  # conv weights, fan-in scaled
+            # a k4 s2 transposed conv sums 2^3 taps of each input channel
+            fan_in = shape[0] * 8 if name in deconvs else t[0].numel()
+            v = torch.randn(shape, generator=g) * fan_in ** -0.5
+        sd[name] = v
+    return sd
