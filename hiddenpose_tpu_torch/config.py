@@ -1,8 +1,8 @@
-"""The model configuration of the inference path.
+"""The model and training configuration of the ported paths.
 
 The fields of ``hiddenpose_tpu/config.py::ModelConfig`` that the inference
-path reads, with the same defaults and the same presets, so the port runs
-where the JAX package is not installed.  Any object with these attributes
+path reads, and ``TrainConfig`` field for field, with the same defaults and
+the same presets, so the port runs where the JAX package is not installed.  Any object with these attributes
 (the JAX package's ``Config`` included) is accepted wherever a config is.
 """
 
@@ -33,8 +33,31 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """The reference defaults (``config/config_noise.py`` TRAIN node)."""
+
+    optimizer: str = "adam"
+    lr: float = 1e-3
+    lr_factor: float = 0.2
+    lr_step: Tuple[int, ...] = (2, 4, 13)
+    batch_size: int = 2
+    begin_epoch: int = 0
+    end_epoch: int = 15
+    seed: int = 410
+    # The reference calls lr_scheduler.step() BEFORE each epoch, so epoch e
+    # trains with the schedule already advanced to e + 1 (train/optim.py).
+    step_before_epoch: bool = True
+    loss_type: str = "L2JointLocationLoss"
+    label_smoothing: float = 0.2
+    # 'default' | 'high' | 'highest'; the port runs 'highest' (full f32,
+    # TF32 off) only: train/step.py raises on the others.
+    matmul_precision: str = "default"
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def preset_t128(self) -> "Config":
         """The live training configuration: bin_len x4, T=128,

@@ -1,12 +1,14 @@
 """Deterministic synthetic NLOS captures, for smoke runs and tests.
 
-A copy of ``hiddenpose_tpu/data/synthetic.py::make_sample`` (numpy only),
+A copy of ``hiddenpose_tpu/data/synthetic.py::make_sample`` and
+``make_batch`` (numpy only),
 so the port needs no dataset and no JAX package: a stick-figure "person"
 of SMPL-like joints rendered into a confocal transient, each scatterer on
 a bone an ellipsoid shell at t = 2*dist/bin_len.  The two copies give
 identical arrays (``tests/test_torch_config_data.py``).
 
-meas (1, T, H, W), vol (1, D, H, W), joints (J, 3) in heatmap-voxel units.
+meas (1, T, H, W), vol (1, D, H, W), joints (J, 3) in heatmap-voxel units;
+a batch stacks them and adds ``joints_vis``, all ones.
 """
 
 from __future__ import annotations
@@ -147,4 +149,24 @@ def make_sample(
         "vol": vol[None].astype(np.float32),
         "joints": joints_hm.astype(np.float32),
         "person_id": f"synthetic-{seed}",
+    }
+
+
+def make_batch(
+    seeds, time_size=128, image_size=128, grid=128, heatmap_size=64,
+    bin_len=0.04,
+) -> Dict[str, np.ndarray]:
+    """The samples of ``seeds`` stacked into one training batch: meas
+    (B, 1, T, H, W), vol (B, 1, D, H, W), joints and joints_vis (B, J*3)."""
+    samples = [
+        make_sample(s, time_size, image_size, grid, heatmap_size, bin_len)
+        for s in seeds
+    ]
+    return {
+        "meas": np.stack([s["meas"] for s in samples]),
+        "vol": np.stack([s["vol"] for s in samples]),
+        "joints": np.stack([s["joints"] for s in samples]).reshape(
+            len(samples), -1
+        ),
+        "joints_vis": np.ones((len(samples), 72), np.float32),
     }

@@ -4,7 +4,8 @@ Port of ``hiddenpose_tpu/models/blocks.py`` (``StencilConv3``,
 ``ResConv3D``, ``FeatureExtraction``; the stride-1 path).  Volumes are
 NCDHW, which is the JAX package's channels-planes layout, so every 3^3
 conv goes straight to the K1 kernel (``ops/kernels/conv3p.py``) with no
-transposes.  Module and parameter names follow the reference PyTorch
+transposes; with grad mode on, through its ``autograd.Function``
+(backward K5 and K6).  Module and parameter names follow the reference PyTorch
 model, so ``hiddenpose_tpu.utils.torch_import.convert_state_dict`` reads
 this model's ``state_dict`` directly.
 """
@@ -14,12 +15,24 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from hiddenpose_tpu_torch.ops.kernels import conv3_planes, conv3_planes_ref
+from hiddenpose_tpu_torch.ops.kernels import (
+    conv3_planes,
+    conv3_planes_diff,
+    conv3_planes_ref,
+)
 
 
 def dhwio(weight: torch.Tensor) -> torch.Tensor:
     """A torch OIDHW conv weight as the contiguous DHWIO the kernels take."""
     return weight.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def conv3p_route(use_kernels: bool):
+    """K1 for the serving forward, its ``autograd.Function`` when grad mode
+    is on, the plain version when kernels are off."""
+    if not use_kernels:
+        return conv3_planes_ref
+    return conv3_planes_diff if torch.is_grad_enabled() else conv3_planes
 
 
 class StencilConv3(nn.Conv3d):
@@ -37,9 +50,9 @@ class StencilConv3(nn.Conv3d):
         self.use_kernels = True
 
     def forward(self, x, residual=None, act: str = "none"):
-        fn = conv3_planes if self.use_kernels else conv3_planes_ref
-        return fn(x, dhwio(self.weight), self.bias, residual, act=act,
-                  pad_mode=self.pad_mode)
+        return conv3p_route(self.use_kernels)(
+            x, dhwio(self.weight), self.bias, residual, act=act,
+            pad_mode=self.pad_mode)
 
 
 class ResConv3D(nn.Module):
@@ -92,7 +105,7 @@ class FeatureExtraction(nn.Module):
     def forward(self, x):
         h = self.conv1[1](x)
         h = self.conv1[3](self.conv1[2](h))
-        fn = conv3_planes if self.use_kernels else conv3_planes_ref
+        fn = conv3p_route(self.use_kernels)
         if self.basedim == 1:
             return fn(x, dhwio(self.weights), None, h, pad_mode="zero")
         return h + fn(x, dhwio(self.weights), pad_mode="zero")

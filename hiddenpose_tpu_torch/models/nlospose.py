@@ -1,4 +1,4 @@
-"""NlosPose: the composite model, in eval mode.
+"""NlosPose: the composite model, for serving and for the train step.
 
 Port of ``hiddenpose_tpu/models/nlospose.py``:
 
@@ -10,7 +10,10 @@ Port of ``hiddenpose_tpu/models/nlospose.py``:
       -> PoseNet3D on (feature + refine)
       -> (heatmaps (B, J, Z, Y, X), refine (B, 1, T, H, W))
 
-The external API keeps the JAX package's NCDHW conventions.
+The external API keeps the JAX package's NCDHW conventions.  In eval mode
+with grad mode off (serving) the kernels run with their fused epilogues;
+in training they run through their ``autograd.Function``s (see
+``models/posenet3d.py``).
 """
 
 from __future__ import annotations

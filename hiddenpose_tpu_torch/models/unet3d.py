@@ -4,7 +4,9 @@ Port of ``hiddenpose_tpu/models/unet3d.py``: four levels,
 DoubleConv = (3^3 conv -> GroupNorm(4, eps 1e-5) -> ReLU) x 2, MaxPool3d(2)
 down, trilinear x2 (align_corners=True) up with centre padding to the skip,
 concatenation, and a 1x1x1 output conv.  Every 3^3 conv is the K1 kernel
-(``StencilConv3``); the norms, pools and resizes are plain torch ops.
+(``StencilConv3``); the norms, resizes and the pools' forward are plain
+torch ops, and with grad mode on the pools' backward is K8
+(``ops/kernels/pool2p.py``).
 Module names follow the reference (``conv``, ``enc{1-4}.encoder.1``,
 ``dec{1-4}.conv``, ``out.conv``; ``double_conv.{0,1,3,4}``).
 """
@@ -16,6 +18,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from hiddenpose_tpu_torch.models.blocks import StencilConv3
+from hiddenpose_tpu_torch.ops.kernels import max_pool2_diff
+
+
+class MaxPool2(nn.Module):
+    """MaxPool3d(2); with kernels on and grad mode on, its backward is K8
+    (the cotangent to the first maximum of each window in (d, h, w)
+    order, as ``F.max_pool3d``'s own backward and the JAX package's)."""
+
+    def __init__(self):
+        super().__init__()
+        self.use_kernels = True
+
+    def forward(self, x):
+        if self.use_kernels and torch.is_grad_enabled():
+            return max_pool2_diff(x)
+        return F.max_pool3d(x, 2)
 
 
 class DoubleConv(nn.Module):
@@ -40,7 +58,7 @@ class Encoder(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.encoder = nn.Sequential(
-            nn.MaxPool3d(2), DoubleConv(in_channels, out_channels))
+            MaxPool2(), DoubleConv(in_channels, out_channels))
 
     def forward(self, x):
         return self.encoder(x)

@@ -27,7 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("conv3p.cu", "stem_conv.cu", "phase_pool.cu", "conv3mxu.cu")
+SOURCES = ("conv3p.cu", "stem_conv.cu", "phase_pool.cu", "conv3mxu.cu",
+           "conv3p_adjoint.cu", "conv3p_wgrad.cu", "phase_pool_vjp.cu",
+           "pool2p.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -42,6 +44,10 @@ SIGNATURES = {
     "hp_stem_conv_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "hp_maxpool3d_k3s2p1": [_P] * 2 + [_I] * 8 + [_P],
     "hp_conv3_mxu_fwd": [_P] * 5 + [_I] * 7 + [_P],
+    "hp_conv3p_adjoint": [_P] * 3 + [_I] * 7 + [_P],
+    "hp_conv3p_wgrad": [_P] * 5 + [_I] * 8 + [_P],
+    "hp_maxpool3d_k3s2p1_vjp": [_P] * 3 + [_I] * 8 + [_P],
+    "hp_maxpool2_bwd": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -132,6 +138,22 @@ def launch(name: str, *args) -> None:
 def ptr(t) -> int | None:
     """Device pointer of a tensor, or None (a C null) for None."""
     return None if t is None else t.data_ptr()
+
+
+def no_grad_inputs(name: str, *tensors, use: str) -> None:
+    """Raise if grad mode is on and an input requires grad.
+
+    A kernel writes into a fresh tensor through a raw pointer, so on the
+    GPU its output has no ``grad_fn``: called under autograd it would cut
+    the graph silently.  Only the ``autograd.Function`` named by ``use``
+    calls a kernel there (its forward and backward run with grad mode off).
+    The check runs on every device, so the CPU tests catch a misrouted
+    caller."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and grad mode is on; the raw "
+            f"kernel is not differentiable, use {use}")
 
 
 def check(t, name: str, *, shape=None, device=None, aligned: bool = False):

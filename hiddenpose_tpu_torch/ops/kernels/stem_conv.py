@@ -10,7 +10,8 @@ is ``csrc/stem_conv.cu``; its header says what bounds it (fp32 FMA issue)
 and how the tiling answers that.
 
 On a CPU tensor the wrapper runs :func:`stem_conv_raw_ref`; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises.  It is the serving stem only: it
+raises when an input requires grad and grad mode is on.
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ def stem_conv_raw(x, kernel, scale, shift, relu=True):
     if x.dim() != 5 or x.shape[-1] != 1:
         raise ValueError(f"x must be (B, D, H, W, 1), got {tuple(x.shape)}")
     b, d, h, w, _ = x.shape
+    # Eval only: training keeps the library stem conv (posenet3d.py).
+    _build.no_grad_inputs("stem_conv_raw", x, kernel, scale, shift,
+                          use="the library conv (training has no fused stem)")
     dev = x.device
     _build.check(x, "x", device=dev)
     _build.check(kernel, "kernel", shape=(7, 7, 7, 1, COUT), device=dev,

@@ -1,27 +1,36 @@
-"""Weight bridge: the JAX package's variables -> the port's ``state_dict``.
+"""Weight bridge between the JAX package's variable trees and the port.
 
-The inverse of ``hiddenpose_tpu/utils/torch_import.py``: it takes the
-``{"params", "batch_stats"}`` trees of ``hiddenpose_tpu``'s NlosPose (as
-nested dicts of numpy arrays) and returns the reference-named PyTorch
-``state_dict`` that ``NlosPose.load_state_dict`` takes, so both packages
-can run identical weights.  Conversions:
+``hiddenpose_tpu/utils/torch_import.py`` maps a reference-named PyTorch
+``state_dict`` to the JAX NlosPose's ``{"params", "batch_stats"}`` trees.
+This module is the port's own copy of that map, in both directions:
+
+* :func:`state_dict_from_jax` turns the JAX variables (nested dicts of
+  numpy arrays) into the ``state_dict`` that ``NlosPose.load_state_dict``
+  takes, so both packages run identical weights;
+* :func:`from_jax` / :func:`to_jax` carry any tree shaped like one
+  collection (``"params"`` or ``"batch_stats"``) to a dict keyed by the
+  port's names and back: parameters, but also gradients and Adam's ``mu``
+  and ``nu``, so one train step's results compare name by name.
+
+Conversions (each linear and a pure relayout, so they carry gradients and
+both Adam moments as they carry weights):
 
 * flax conv kernels are DHWIO; torch ``Conv3d.weight`` is OIDHW;
 * flax ``ConvTranspose`` correlates a kernel (D, H, W, I, O) with the
   dilated input; torch's transposed conv convolves a (I, O, D, H, W)
   weight, so the bridge transposes back and flips the three spatial axes;
 * the PoseNet stem (``StemS2D``) keeps its BatchNorm inside the conv
-  scope (``bn_scale``/``bn_bias``, ``bn_mean``/``bn_var``); the bridge
-  unfolds it into ``pose_net.conv1`` and ``pose_net.bn1``;
-* every BatchNorm gets ``num_batches_tracked = 0``, which the importer
-  ignores.
+  scope (``bn_scale``/``bn_bias``, ``bn_mean``/``bn_var``), which maps to
+  ``pose_net.conv1`` and ``pose_net.bn1``;
+* every BatchNorm gets ``num_batches_tracked = 0`` in a state_dict, which
+  the importer ignores.
 
-Pure numpy in, torch tensors out; no jax import.
+Pure numpy in, torch tensors out (and back); no jax import.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -29,99 +38,137 @@ import torch
 _RESNET50_LAYERS = (3, 4, 6, 3)
 _DECONV_LAYERS = 3
 
-
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
-
-
-def _conv_w(k) -> torch.Tensor:
-    """DHWIO -> OIDHW."""
-    return _t(np.transpose(np.asarray(k), (4, 3, 0, 1, 2)))
+# (port name, collection, path inside the collection, kind); kind 'conv'
+# is DHWIO <-> OIDHW, 'deconv' the transposed conv, 'same' no relayout.
+Entry = Tuple[str, str, Tuple[str, ...], str]
 
 
-def _deconv_w(k) -> torch.Tensor:
-    """Correlating (D, H, W, I, O) -> convolving (I, O, D, H, W)."""
-    w = np.transpose(np.asarray(k), (3, 4, 0, 1, 2))
-    return _t(w[:, :, ::-1, ::-1, ::-1])
-
-
-def _conv(sd, prefix, p, bias=True):
-    sd[f"{prefix}.weight"] = _conv_w(p["kernel"])
+def _conv(out: List[Entry], name, path, bias=True):
+    out.append((f"{name}.weight", "params", (*path, "kernel"), "conv"))
     if bias:
-        sd[f"{prefix}.bias"] = _t(p["bias"])
+        out.append((f"{name}.bias", "params", (*path, "bias"), "same"))
 
 
-def _bn(sd, prefix, scale, bias, mean, var):
-    sd[f"{prefix}.weight"] = _t(scale)
-    sd[f"{prefix}.bias"] = _t(bias)
-    sd[f"{prefix}.running_mean"] = _t(mean)
-    sd[f"{prefix}.running_var"] = _t(var)
-    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+def _bn(out: List[Entry], name, path, stats_path, keys):
+    """keys: (scale, bias, mean, var) leaf names."""
+    for suffix, coll, p, key in (
+            ("weight", "params", path, keys[0]),
+            ("bias", "params", path, keys[1]),
+            ("running_mean", "batch_stats", stats_path, keys[2]),
+            ("running_var", "batch_stats", stats_path, keys[3])):
+        out.append((f"{name}.{suffix}", coll, (*p, key), "same"))
 
 
-def _feature_extraction(sd, p):
-    pre = "feature_extraction"
-    _conv(sd, f"{pre}.conv1.1", p["conv_in"])
+def _double_conv(out, name, path):
+    _conv(out, f"{name}.0", (*path, "conv1"))
+    _conv(out, f"{name}.3", (*path, "conv2"))
+    for i, gn in ((1, "gn1"), (4, "gn2")):
+        out.append((f"{name}.{i}.weight", "params", (*path, gn, "scale"),
+                    "same"))
+        out.append((f"{name}.{i}.bias", "params", (*path, gn, "bias"),
+                    "same"))
+
+
+def _layout() -> List[Entry]:
+    """Every tensor of the port's NlosPose (posenet3d_50, basedim 1) and
+    where it lives in the JAX variables."""
+    out: List[Entry] = []
+    fe, fep = "feature_extraction", ("feature_extraction",)
+    _conv(out, f"{fe}.conv1.1", (*fep, "conv_in"))
     for i, res in ((2, "res1"), (3, "res2")):
-        _conv(sd, f"{pre}.conv1.{i}.tmp.1", p[res]["conv1"])
-        _conv(sd, f"{pre}.conv1.{i}.tmp.4", p[res]["conv2"])
-    sd[f"{pre}.weights"] = _conv_w(p["corner_kernel"])
+        _conv(out, f"{fe}.conv1.{i}.tmp.1", (*fep, res, "conv1"))
+        _conv(out, f"{fe}.conv1.{i}.tmp.4", (*fep, res, "conv2"))
+    out.append((f"{fe}.weights", "params", (*fep, "corner_kernel"), "conv"))
 
-
-def _double_conv(sd, prefix, p):
-    _conv(sd, f"{prefix}.0", p["conv1"])
-    sd[f"{prefix}.1.weight"] = _t(p["gn1"]["scale"])
-    sd[f"{prefix}.1.bias"] = _t(p["gn1"]["bias"])
-    _conv(sd, f"{prefix}.3", p["conv2"])
-    sd[f"{prefix}.4.weight"] = _t(p["gn2"]["scale"])
-    sd[f"{prefix}.4.bias"] = _t(p["gn2"]["bias"])
-
-
-def _unet(sd, p):
-    pre = "autoencoder"
-    _double_conv(sd, f"{pre}.conv.double_conv", p["conv"])
+    ae, aep = "autoencoder", ("autoencoder",)
+    _double_conv(out, f"{ae}.conv.double_conv", (*aep, "conv"))
     for i in range(1, 5):
-        _double_conv(sd, f"{pre}.enc{i}.encoder.1.double_conv", p[f"enc{i}"])
-        _double_conv(sd, f"{pre}.dec{i}.conv.double_conv", p[f"dec{i}"])
-    _conv(sd, f"{pre}.out.conv", p["out"])
+        _double_conv(out, f"{ae}.enc{i}.encoder.1.double_conv",
+                     (*aep, f"enc{i}"))
+        _double_conv(out, f"{ae}.dec{i}.conv.double_conv", (*aep, f"dec{i}"))
+    _conv(out, f"{ae}.out.conv", (*aep, "out"))
 
-
-def _posenet(sd, p, s):
-    pre = "pose_net"
-    stem_p, stem_s = p["conv1"], s["conv1"]
-    sd[f"{pre}.conv1.weight"] = _conv_w(stem_p["kernel"])
-    _bn(sd, f"{pre}.bn1", stem_p["bn_scale"], stem_p["bn_bias"],
-        stem_s["bn_mean"], stem_s["bn_var"])
+    pn, pnp = "pose_net", ("pose_net",)
+    _conv(out, f"{pn}.conv1", (*pnp, "conv1"), bias=False)
+    _bn(out, f"{pn}.bn1", (*pnp, "conv1"), (*pnp, "conv1"),
+        ("bn_scale", "bn_bias", "bn_mean", "bn_var"))
+    bn_keys = ("scale", "bias", "mean", "var")
     for stage, blocks in enumerate(_RESNET50_LAYERS, start=1):
         for b in range(blocks):
-            bp, bs = p[f"layer{stage}_{b}"], s[f"layer{stage}_{b}"]
-            tp = f"{pre}.layer{stage}.{b}"
+            name, path = f"{pn}.layer{stage}.{b}", (*pnp, f"layer{stage}_{b}")
             for i in (1, 2, 3):
-                _conv(sd, f"{tp}.conv{i}", bp[f"conv{i}"], bias=False)
-                _bn(sd, f"{tp}.bn{i}", bp[f"bn{i}"]["scale"],
-                    bp[f"bn{i}"]["bias"], bs[f"bn{i}"]["mean"],
-                    bs[f"bn{i}"]["var"])
-            if "conv_proj" in bp:
-                _conv(sd, f"{tp}.downsample.0", bp["conv_proj"], bias=False)
-                _bn(sd, f"{tp}.downsample.1", bp["bn_proj"]["scale"],
-                    bp["bn_proj"]["bias"], bs["bn_proj"]["mean"],
-                    bs["bn_proj"]["var"])
-    hp, hs = p["head"], s["head"]
+                _conv(out, f"{name}.conv{i}", (*path, f"conv{i}"), bias=False)
+                _bn(out, f"{name}.bn{i}", (*path, f"bn{i}"),
+                    (*path, f"bn{i}"), bn_keys)
+            if b == 0:  # every stage's first block projects (ResNet-50)
+                _conv(out, f"{name}.downsample.0", (*path, "conv_proj"),
+                      bias=False)
+                _bn(out, f"{name}.downsample.1", (*path, "bn_proj"),
+                    (*path, "bn_proj"), bn_keys)
+    hp = (*pnp, "head")
     for i in range(_DECONV_LAYERS):
-        sd[f"{pre}.head.features.{3 * i}.weight"] = _deconv_w(
-            hp[f"deconv{i + 1}"]["kernel"])
-        _bn(sd, f"{pre}.head.features.{3 * i + 1}", hp[f"bn{i + 1}"]["scale"],
-            hp[f"bn{i + 1}"]["bias"], hs[f"bn{i + 1}"]["mean"],
-            hs[f"bn{i + 1}"]["var"])
-    _conv(sd, f"{pre}.head.features.{3 * _DECONV_LAYERS}", hp["final"])
+        out.append((f"{pn}.head.features.{3 * i}.weight", "params",
+                    (*hp, f"deconv{i + 1}", "kernel"), "deconv"))
+        _bn(out, f"{pn}.head.features.{3 * i + 1}", (*hp, f"bn{i + 1}"),
+            (*hp, f"bn{i + 1}"), bn_keys)
+    _conv(out, f"{pn}.head.features.{3 * _DECONV_LAYERS}", (*hp, "final"))
+    return out
+
+
+def _to_port(a, kind) -> torch.Tensor:
+    a = np.asarray(a)
+    if kind == "conv":      # DHWIO -> OIDHW
+        a = np.transpose(a, (4, 3, 0, 1, 2))
+    elif kind == "deconv":  # correlating (D, H, W, I, O) -> (I, O, D, H, W)
+        a = np.transpose(a, (3, 4, 0, 1, 2))[:, :, ::-1, ::-1, ::-1]
+    return torch.from_numpy(np.array(a, dtype=np.float32))  # writable copy
+
+
+def _to_jax(t, kind) -> np.ndarray:
+    a = t.detach().cpu().float().numpy()
+    if kind == "conv":
+        a = np.transpose(a, (2, 3, 4, 1, 0))
+    elif kind == "deconv":
+        a = np.transpose(a[:, :, ::-1, ::-1, ::-1], (2, 3, 4, 0, 1))
+    return np.ascontiguousarray(a)
+
+
+def from_jax(tree: Mapping, collection: str = "params"
+             ) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX ``collection`` (params, their gradients
+    or Adam moments; or batch_stats) -> {port name: tensor}."""
+    out = {}
+    for name, coll, path, kind in _layout():
+        if coll == collection:
+            leaf = tree
+            for key in path:
+                leaf = leaf[key]
+            out[name] = _to_port(leaf, kind)
+    return out
+
+
+def to_jax(named: Mapping[str, torch.Tensor], collection: str = "params"
+           ) -> Dict:
+    """{port name: tensor} (e.g. ``named_parameters()``, their ``.grad``
+    or Adam's ``exp_avg``) -> the nested dict of numpy arrays shaped like
+    the JAX ``collection``.  Every name of the collection must be there."""
+    tree: Dict = {}
+    for name, coll, path, kind in _layout():
+        if coll != collection:
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _to_jax(named[name], kind)
+    return tree
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` of the JAX NlosPose (numpy
     leaves) -> the port's ``NlosPose`` state_dict."""
-    params, stats = variables["params"], variables["batch_stats"]
-    sd: Dict[str, torch.Tensor] = {}
-    _feature_extraction(sd, params["feature_extraction"])
-    _unet(sd, params["autoencoder"])
-    _posenet(sd, params["pose_net"], stats["pose_net"])
+    sd = {**from_jax(variables["params"], "params"),
+          **from_jax(variables["batch_stats"], "batch_stats")}
+    for name in [n for n in sd if n.endswith(".running_var")]:
+        sd[name[:-len("running_var")] + "num_batches_tracked"] = \
+            torch.tensor(0, dtype=torch.long)
     return sd

@@ -1,4 +1,4 @@
-"""Where the time of the port's t128 forward goes, on one GPU.
+"""Where the time of the port's t128 forward and train step goes, on one GPU.
 
     python3 scripts/torch_stage_profile.py
 
@@ -12,7 +12,9 @@ off).  It measures:
    versions, alternating (kernels, plain, kernels, plain);
 2. the server over a 9-request burst under ``torch.profiler``: device
    time by kernel, and the device's idle share (1 - busy / wall, busy the
-   union of the device kernels' intervals).
+   union of the device kernels' intervals);
+3. one t128 train step (``make_train_step``, batch ``make_batch([0, 1])``,
+   after one warm-up step) under ``torch.profiler``: the same readings.
 
 Prints both and writes them to ``chiprun_out/torch_stage_profile.json``.
 Imports no JAX.
@@ -88,14 +90,55 @@ def busy_seconds(events) -> float:
     return busy / 1e6  # profiler times are in microseconds
 
 
+def device_profile(tag, fn):
+    """Run ``fn`` under torch.profiler; print and return wall time, device
+    busy time, idle share, the 15 kernels with the most device time and the
+    12 (op, input shapes) pairs with the most device time of their own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_seconds(kern)
+    by_kernel = {}
+    for e in kern:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    total = sum(by_kernel.values())
+    print(f"[{tag}] wall {wall:.4f} s, device busy {busy:.4f} s, idle share "
+          f"{1 - busy / wall:.4f}, {len(kern)} device events", flush=True)
+    for name, ms in top:
+        print(f"[{tag}] {ms:10.3f} ms {100 * ms / total:6.2f}%  {name[:90]}")
+    by_op = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        ms = e.self_device_time_total / 1e3
+        if ms > 0 and e.device_type == torch.autograd.DeviceType.CPU:
+            by_op[f"{e.key} {e.input_shapes}"] = ms
+    top_ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
+    for name, ms in top_ops:
+        print(f"[{tag}] op {ms:10.3f} ms {100 * ms / total:6.2f}%  "
+              f"{name[:150]}")
+    return dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall,
+                device_ms_total=total, device_ms_by_kernel=dict(top),
+                device_ms_by_op_and_shapes=dict(top_ops))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
+    from hiddenpose_tpu_torch.config import TrainConfig
+    from hiddenpose_tpu_torch.data.synthetic import make_batch
     from hiddenpose_tpu_torch.models.nlospose import build_nlospose
     from hiddenpose_tpu_torch.serve import InferenceServer
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -127,37 +170,30 @@ def main() -> int:
                              device=dev)
     try:
         server.warmup()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for f in [server.submit(c) for c in caps]:
-                f.result(timeout=600)
-            wall = time.perf_counter() - t0
+        burst = device_profile("burst", lambda: [
+            f.result(timeout=600) for f in [server.submit(c) for c in caps]])
     finally:
         server.close()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_seconds(kern)
-    by_kernel = {}
-    for e in kern:
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
-    total = sum(by_kernel.values())
-    print(f"[burst] {len(caps)} requests, wall {wall:.4f} s, device busy "
-          f"{busy:.4f} s, idle share {1 - busy / wall:.4f}, "
-          f"{len(kern)} device events", flush=True)
-    for name, ms in top:
-        print(f"[burst] {ms:10.3f} ms {100 * ms / total:6.2f}%  {name[:90]}")
+    del server
+
+    model, lct = build_nlospose(cfg.model, device=dev)
+    model.load_state_dict(sd)
+    m = cfg.model
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        [0, 1], m.time_size, m.image_size[0], m.grid_dim, m.heatmap_size[0],
+        m.bin_len).items()}
+    state = TrainState.create(model, TrainConfig())
+    step = make_train_step(model)
+    step(state, batch, lct)  # warm-up: cuDNN's algorithm choice
+    torch.cuda.synchronize()
+    train = device_profile("train", lambda: step(state, batch, lct))
     print(smi, flush=True)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "torch_stage_profile.json").write_text(json.dumps(dict(
-        device=smi, stages=stages,
-        burst=dict(requests=len(caps), wall_s=wall, busy_s=busy,
-                   idle_share=1 - busy / wall,
-                   device_ms_by_kernel=dict(top))), indent=1))
+        device=smi, stages=stages, burst=dict(requests=len(caps), **burst),
+        train_step=train), indent=1))
     return 0
 
 

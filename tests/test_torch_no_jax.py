@@ -1,5 +1,5 @@
 """The port runs where there is no JAX: importing ``hiddenpose_tpu_torch``
-and every module of its inference path, in a fresh interpreter, leaves
+and every module of its inference path and train step, in a fresh interpreter, leaves
 ``jax``, ``flax`` and the JAX package ``hiddenpose_tpu`` out of
 ``sys.modules``; and ``chip_smoke.py`` refuses to run (non-zero exit, no
 result line) on a host without a GPU."""
@@ -24,10 +24,14 @@ MODULES = [
     "hiddenpose_tpu_torch.ops.normalize",
     "hiddenpose_tpu_torch.ops.softargmax",
     "hiddenpose_tpu_torch.ops.kernels",
+    "hiddenpose_tpu_torch.ops.kernels.pool2p",
+    "hiddenpose_tpu_torch.losses",
     "hiddenpose_tpu_torch.models.blocks",
     "hiddenpose_tpu_torch.models.unet3d",
     "hiddenpose_tpu_torch.models.posenet3d",
     "hiddenpose_tpu_torch.models.nlospose",
+    "hiddenpose_tpu_torch.train.optim",
+    "hiddenpose_tpu_torch.train.state",
     "hiddenpose_tpu_torch.train.step",
     "hiddenpose_tpu_torch.serve",
     "hiddenpose_tpu_torch.utils.jax_bridge",
