@@ -27,7 +27,23 @@ lines:
    statistics and new parameters; beside it, the plain step on a
    measurement moved by 1e-7 shows how far rounding alone moves the
    gradients; last, forward and backward ms and peak memory, kernels and
-   plain in turns.
+   plain in turns;
+7. sformer: ``build_sformer(t128_config().model, dtype="float32")`` at full
+   width (dim 256, depth 8, 8 heads of 32) answers a real-data-shaped
+   (1, 128, 1, 128, 128) video a few times: the attention kernel launches
+   exactly 8 times a forward, logits and ``simdr_decode`` joints are
+   finite, spread across joints and videos, and depend on the rotary
+   tables; kernels and plain versions on the same weights must agree; ms
+   per capture and peak memory of each; then the bfloat16 mode's ms, peak
+   memory and distance from the float32 logits;
+8. probes: the four stem probes of ``scripts/torch_diag_stem_paired.py``.
+
+Phase 3 also times, beside each kernel, the one PyTorch call that computes
+the same function where there is one (``library_ms``: a yardstick, used
+nowhere in the port), and computes the kernel's bound: the larger of its
+bytes (each input read once, each output written once) over the card's
+memory rate and its operations over the card's peak rate for their type
+(``BANDWIDTH``, ``PEAK`` below).
 
 The comparisons of phases 3-5 run with
 ``torch.use_deterministic_algorithms(True)``, so a reading does not move
@@ -57,6 +73,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 B = 2  # the serving batch
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at the full
+# 700 W limit): device memory bytes/s, and FLOP/s by operand type.  f32
+# means fp32 FMA outside the tensor cores: the port's f32 kernels never
+# use TF32.
+BANDWIDTH = 3.35e12
+PEAK = {"f32": 67e12, "bf16": 989e12}
+
 # Tolerances, kernel vs plain, both f32 with TF32 off: they differ only in
 # summation order, a few ulps of the output scale.  Max-pool selects
 # values and must match exactly.
@@ -82,6 +105,29 @@ TRAIN_STATS_TOL = 1e-3       # new running stats, max err / max abs
 TRAIN_GRAD_L2_TOL = 0.05     # gradients, relative L2 over each module
 TRAIN_PARAM_TOL = 1e-6       # new params where the two gradients agree
 TRAIN_SIGN_AGREE = 0.99      # share of large gradient elements of one sign
+# K9, kernel vs plain, |got - want| <= atol + rtol * |want|: f32 both sides
+# (fp32 FMA vs cuBLAS f32), differing in summation order and in the online
+# softmax's rescaling.  With a bf16 v both round the output to bf16, so
+# they may differ by one bf16 ulp, at most 2^-7 of the value; the atol
+# covers outputs near zero, where the differently rounded probabilities
+# (about 1e-4 at these shapes) outweigh an ulp.  A typical output at the
+# full shape is 0.05: dropped keys or a ragged tail would show.
+ATTN_F32_TOL = (1e-5, 2e-6)
+ATTN_EXTREME_TOL = (1e-5, 1e-5)
+ATTN_BF16_TOL = (2.0 ** -7, 1e-3)
+# Phase 7, the Sformer with kernels vs with plain versions, same weights
+# and video: the logits' max error over their max, and the decoded joints
+# in bins (image units x 2).  In the bf16 mode a one-ulp difference of K9's
+# bf16 output passes through the bf16 Dense layers of up to 8 layers.  The
+# bf16 mode against the f32 logits differs by bf16's rounding at every
+# Dense, which the peaked weights amplify: a few times the first reading
+# (8.7e-3 of the max).
+SFORMER_TOL = 1e-4
+SFORMER_JOINT_TOL = 0.05
+SFORMER_BF16_KERNELS_TOL = 1e-2
+SFORMER_BF16_TOL = 3e-2
+SFORMER_LAUNCHES_PER_FORWARD = 8   # one grouped attention per layer
+DOT_PROBE_TOL = 1e-5
 
 
 @contextlib.contextmanager
@@ -156,16 +202,35 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None):
+def bound(nbytes, ops):
+    """The least time (ms) the card could take: ``nbytes`` over its memory
+    rate, or ``ops`` ([(FLOP, operand type), ...]) over its peak rates,
+    whichever is larger, and which."""
+    by_bytes = nbytes / BANDWIDTH * 1e3
+    by_ops = sum(f / PEAK[t] for f, t in ops) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
+            rtol_atol=None, library_fn=None, moved=0, ops=(), tag="3 kernels"):
     """Error and times (plain, kernel, kernel, plain) of one call shape.
-    The kernel's result must be exact (``exact``), within ``atol``, or
-    within CONV_TOL of the plain result's max; a tuple result (dk, db) is
-    compared part by part."""
+    The kernel's result must be exact (``exact``), within ``atol``, within
+    ``rtol_atol`` element by element, or within CONV_TOL of the plain
+    result's max; a tuple result (dk, db) is compared part by part.
+    ``library_fn`` is the one PyTorch call for the same function, timed
+    only; ``moved`` (bytes) and ``ops`` give the bound."""
     with deterministic(warn_only=True):
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    pairs = [(g_.float(), w_.float()) for g_, w_ in pairs]
     err = max((g - w).abs().max().item() for g, w in pairs)
     scale = max(w.abs().max().item() for _, w in pairs)
     finite = all(bool(torch.isfinite(g).all()) for g, _ in pairs)
@@ -173,6 +238,11 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None):
         ok = err == 0.0
     elif atol is not None:
         ok = finite and err <= atol
+    elif rtol_atol is not None:
+        ok = finite and all(bool(
+            ((g.float() - w.float()).abs()
+             <= rtol_atol[1] + rtol_atol[0] * w.float().abs()).all())
+            for g, w in pairs)
     else:
         ok = finite and all(
             (g - w).abs().max().item() <= CONV_TOL * max(
@@ -181,10 +251,15 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None):
     k1 = cuda_ms(kernel_fn, iters)
     k2 = cuda_ms(kernel_fn, iters)
     p2 = cuda_ms(plain_fn, iters)
+    lib = cuda_ms(library_fn, iters) if library_fn is not None else None
+    bound_ms, bound_by = bound(moved, ops)
     res = dict(shape=name, max_abs_err=err, max_abs_ref=scale,
-               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-    log(f"[3 kernels] {name}: max_abs_err {err:.3e} (ref max {scale:.3e}) "
-        f"kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms")
+               ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=lib,
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[{tag}] {name}: max_abs_err {err:.3e} (ref max {scale:.3e}) "
+        f"kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms library "
+        f"{'none' if lib is None else format(lib, '.4f') + ' ms'} bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with plain version")
     return res
@@ -236,6 +311,9 @@ TRAIN_PER_STEP = {
 
 
 def phase_kernels(dev):
+    import torch.nn.functional as F
+    from torch.nn.grad import conv3d_input, conv3d_weight
+
     from hiddenpose_tpu_torch.ops import kernels as K
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -249,12 +327,20 @@ def phase_kernels(dev):
         k = randn(3, 3, 3, cin, cout, scale=(27 * cin) ** -0.5)
         bias = randn(cout, scale=0.1)
         r = randn(B, cout, n, n, n) if res else None
+        out_bytes = 4 * B * cout * n ** 3
+        flop = [(2 * 27 * cin * cout * B * n ** 3, "f32")]
+        # the library's operands: a padded copy of x, OIDHW weights
+        xp = F.pad(x, (1,) * 6, mode="replicate" if pad == "edge"
+                   else "constant")
+        w = k.permute(4, 3, 0, 1, 2).contiguous()
         kw = dict(act=act, pad_mode=pad)
         row = compare(
             f"conv3_planes {cin}->{cout} @{n}^3 {pad} {act}"
             f"{' +residual' if res else ''}",
             lambda: K.conv3_planes(x, k, bias, r, **kw),
-            lambda: K.conv3_planes_ref(x, k, bias, r, **kw), iters=20)
+            lambda: K.conv3_planes_ref(x, k, bias, r, **kw), iters=20,
+            library_fn=lambda: F.conv3d(xp, w, bias),
+            moved=nbytes(x, k, bias, r) + out_bytes, ops=flop)
         row["per_forward"] = row["per_step"] = count
         rows["conv3_planes"].append(row)
 
@@ -264,7 +350,11 @@ def phase_kernels(dev):
                 f"conv3_planes_adjoint {cout}->{cin} @{n}^3 {pad}",
                 lambda: K.conv3_planes_adjoint(dz, k, pad_mode=pad),
                 lambda: K.conv3_planes_adjoint_ref(dz, k, pad_mode=pad),
-                iters=10)
+                iters=10,
+                # zero padding's adjoint; edge padding also folds the halo
+                # onto the boundary voxels, which no one call does
+                library_fn=lambda: conv3d_input(x.shape, w, dz, padding=1),
+                moved=nbytes(dz, k, x), ops=flop)
             row["per_step"] = count
             rows["conv3_planes_adjoint"].append(row)
         kw = dict(pad_mode=pad, has_bias=has_bias)
@@ -273,9 +363,12 @@ def phase_kernels(dev):
             f"{' +db' if has_bias else ''}",
             lambda: K.conv3_planes_wgrad(x, dz, **kw),
             lambda: tuple(t for t in K.conv3_planes_wgrad_ref(x, dz, **kw)
-                          if t is not None), iters=10)
+                          if t is not None), iters=10,
+            library_fn=lambda: conv3d_weight(xp, w.shape, dz),
+            moved=nbytes(x, dz, k) + (4 * cout if has_bias else 0), ops=flop)
         row["per_step"] = count
         rows["conv3_planes_wgrad"].append(row)
+    del x, xp, dz, r
 
     x = torch.rand((B, 128, 128, 128, 1), generator=g, device=dev)
     k = randn(7, 7, 7, 1, 64, scale=343 ** -0.5)
@@ -283,16 +376,23 @@ def phase_kernels(dev):
     shift = randn(64, scale=0.1)
     row = compare("stem_conv_raw (2,128^3,1)->(2,128^3,64)",
                   lambda: K.stem_conv_raw(x, k, scale, shift),
-                  lambda: K.stem_conv_raw_ref(x, k, scale, shift), iters=5)
+                  lambda: K.stem_conv_raw_ref(x, k, scale, shift), iters=5,
+                  # conv + BN affine + ReLU: no one library call
+                  moved=nbytes(x, k, scale, shift) + 4 * B * 128 ** 3 * 64,
+                  ops=[(2 * 343 * 64 * B * 128 ** 3, "f32")])
     row["per_forward"] = 1
     rows["stem_conv_raw"].append(row)
 
     # the real pool input: post-ReLU stem output, many exact-zero ties
     y = K.stem_conv_raw(x, k, scale, shift - 0.5)
     zeros = (y == 0).float().mean().item()
+    y_ncdhw = y.permute(0, 4, 1, 2, 3)  # a channels-last view, no copy
+    pooled = 4 * B * 64 ** 3 * 64
     row = compare(f"maxpool3d_k3s2p1 (2,128^3,64) ties ({zeros:.0%} zeros)",
                   lambda: K.maxpool3d_k3s2p1(y),
-                  lambda: K.maxpool3d_k3s2p1_ref(y), iters=10, exact=True)
+                  lambda: K.maxpool3d_k3s2p1_ref(y), iters=10, exact=True,
+                  library_fn=lambda: F.max_pool3d(y_ncdhw, 3, 2, 1),
+                  moved=nbytes(y) + pooled)
     row["per_forward"] = row["per_step"] = 1
     rows["maxpool3d_k3s2p1"].append(row)
 
@@ -301,37 +401,106 @@ def phase_kernels(dev):
         f"maxpool3d_k3s2p1_vjp (2,128^3,64) ties ({zeros:.0%} zeros)",
         lambda: K.maxpool3d_k3s2p1_vjp(y, gy),
         lambda: K.maxpool3d_k3s2p1_vjp_ref(y, gy), iters=5,
-        atol=VJP_ULPS * float(np.spacing(np.float32(gy.abs().max().item()))))
+        atol=VJP_ULPS * float(np.spacing(np.float32(gy.abs().max().item()))),
+        # the 0.5/0.5 tie rule is the maximum chain's: no one library call
+        moved=nbytes(y, gy, y))
     row["per_step"] = 1
     rows["maxpool3d_k3s2p1_vjp"].append(row)
-    del y, gy
+    del y, y_ncdhw, gy
 
     for c, n in POOL2_SHAPES:
         x = torch.relu(randn(B, c, n, n, n))  # GroupNorm + ReLU: ties at 0
         dy = randn(B, c, n // 2, n // 2, n // 2)
+        xg = x.clone().requires_grad_()
+        pooled_graph = F.max_pool3d(xg, 2)  # its backward is the library call
         row = compare(f"max_pool2_bwd (2,{c},{n}^3)",
                       lambda: K.max_pool2_bwd(x, dy),
                       lambda: K.max_pool2_bwd_ref(x, dy), iters=10,
-                      exact=True)
+                      exact=True,
+                      library_fn=lambda: torch.autograd.grad(
+                          pooled_graph, xg, dy, retain_graph=True),
+                      moved=nbytes(x, dy, x))
         row["per_step"] = 1
         rows["max_pool2_bwd"].append(row)
+        del xg, pooled_graph
 
     for c, n, count in K4_SHAPES:
         x = randn(B, n, n, n, c)
         k = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
         sc = torch.rand(c, generator=g, device=dev) + 0.5
         sh = randn(c, scale=0.1)
+        x_ncdhw = x.permute(0, 4, 1, 2, 3)  # channels-last view
+        w = k.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        flop = [(2 * 27 * c * c * B * n ** 3, "f32")]
         row = compare(f"conv3_mxu c{c}@{n}^3 +bn+relu",
                       lambda: K.conv3_mxu(x, k, sc, sh, relu=True),
                       lambda: K.conv3_mxu_ref(x, k, sc, sh, relu=True),
-                      iters=5)
+                      iters=5,
+                      library_fn=lambda: F.conv3d(x_ncdhw, w, padding=1),
+                      moved=nbytes(x, k, sc, sh, x), ops=flop)
         row["per_forward"] = row["per_step"] = count
         rows["conv3_mxu"].append(row)
         row = compare(f"conv3_mxu_dx c{c}@{n}^3",
                       lambda: K.conv3_mxu_dx(x, k),
-                      lambda: K.conv3_mxu_dx_ref(x, k), iters=5)
+                      lambda: K.conv3_mxu_dx_ref(x, k), iters=5,
+                      library_fn=lambda: conv3d_input(
+                          x_ncdhw.shape, w, x_ncdhw, padding=1),
+                      moved=nbytes(x, k, x), ops=flop)
         row["per_step"] = count
         rows["conv3_mxu_dx"].append(row)
+    del x, x_ncdhw
+
+    # K9.  (B, Lq, Lk, dh), q/k dtype, v dtype, calls per Sformer forward:
+    # the Sformer's grouped attention at full width (8 heads x 128 frames
+    # of 1024 patches + 24 joint keys; once a layer), its over="time"
+    # grouping (8 heads x 1024 positions, 128 frames + 24 joint keys), the
+    # ragged shapes of the JAX package's tests, the bf16 mode's
+    # combinations at the full-width shape, and the joint-token read.
+    f32, bf16 = torch.float32, torch.bfloat16
+    full = (8 * 128, 1024, 1048, 32)
+    for shape, qdt, vdt, per, iters, tol in [
+            (full, f32, f32, SFORMER_LAUNCHES_PER_FORWARD, 3, ATTN_F32_TOL),
+            ((8 * 1024, 128, 152, 32), f32, f32, 0, 3, ATTN_F32_TOL),
+            ((3, 64, 80, 32), f32, f32, 0, 20, ATTN_F32_TOL),
+            ((2, 256, 131, 32), f32, f32, 0, 20, ATTN_F32_TOL),
+            ((1, 128, 1048, 32), f32, f32, 0, 20, ATTN_F32_TOL),
+            ((2, 24, 640, 64), f32, f32, 0, 20, ATTN_F32_TOL),
+            (full, bf16, bf16, 0, 3, ATTN_BF16_TOL),
+            (full, f32, bf16, 0, 3, ATTN_BF16_TOL),
+            # the joint-token read, which the model's router keeps on the
+            # library path (more than ROUTED_MAX_LK keys): the reading
+            # that limit rests on
+            ((8, 24, 24 + 128 * 1024, 32), f32, f32, 0, 3, ATTN_F32_TOL)]:
+        b, lq, lk, dh = shape
+        q = (randn(b, lq, dh, scale=dh ** -0.5)).to(qdt)
+        k = randn(b, lk, dh).to(qdt)
+        v = randn(b, lk, dh).to(vdt)
+        half = 2 * b * lq * lk * dh
+        row = compare(
+            f"attend {shape} q/k {qdt} v {vdt}".replace("torch.", ""),
+            lambda: K.attend(q, k, v), lambda: K.attend_ref(q, k, v),
+            iters=iters, rtol_atol=tol,
+            # one dtype for all three, or SDPA refuses
+            library_fn=(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=1.0)) if qdt == vdt else None,
+            moved=nbytes(q, k, v) + b * lq * dh * v.element_size(),
+            ops=[(half, "bf16" if qdt == bf16 else "f32"),
+                 (half, "bf16" if vdt == bf16 else "f32")])
+        row["per_forward"] = per
+        rows["attend"].append(row)
+        del q, k, v
+    # logits x 50: the running max must keep exp() finite
+    q, k, v = randn(1, 8, 8, scale=50.0), randn(1, 136, 8), randn(1, 136, 8)
+    row = compare("attend (1, 8, 136, 8) logits x 50",
+                  lambda: K.attend(q, k, v), lambda: K.attend_ref(q, k, v),
+                  iters=20, rtol_atol=ATTN_EXTREME_TOL,
+                  library_fn=lambda: F.scaled_dot_product_attention(
+                      q, k, v, scale=1.0),
+                  moved=nbytes(q, k, v, q), ops=[(4 * 8 * 136 * 8, "f32")])
+    row["per_forward"] = 0
+    rows["attend"].append(row)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -550,7 +719,7 @@ def phase_train(dev, smi):
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"[6 train] peak memory {peak / 2**30:.3f} GiB; launch counts over "
         f"3 steps: {counts}  [{smi}]")
-    want = {k: 3 * TRAIN_PER_STEP[k] for k in counts}
+    want = {k: 3 * TRAIN_PER_STEP.get(k, 0) for k in counts}
     if counts != want or min(counts[k] for k in K.TRAINING) <= 0:
         raise RuntimeError(f"train launch counts {counts}, expected {want}")
     if not all(np.isfinite(s_[k]) for s_ in steps
@@ -640,6 +809,219 @@ def phase_train(dev, smi):
     return train, counts
 
 
+def sformer_weights(cfg):
+    """The port's peaked random Sformer weights (seed 1) for ``cfg``."""
+    from hiddenpose_tpu_torch.models.sformer import sformer_from_config
+    from hiddenpose_tpu_torch.utils.peaked import (
+        peaked_transformer_state_dict,
+    )
+
+    with torch.device("meta"):  # names and shapes only
+        template = sformer_from_config(cfg)
+    return peaked_transformer_state_dict(template, seed=1)
+
+
+def sformer_videos(dev, seeds=(0, 1)):
+    """Real-data-shaped synthetic captures as videos (1, 128, 1, 128, 128):
+    128 time bins as frames of one 128 x 128 channel."""
+    return [torch.from_numpy(np.random.RandomState(s).rand(
+        1, 128, 1, 128, 128).astype(np.float32)).to(dev) for s in seeds]
+
+
+def _median_ms(fn, reps=5):
+    """Median device ms of ``fn()`` over ``reps`` runs, and the peak memory
+    of one."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats()
+        times.append(cuda_ms(fn, iters=1))
+    return float(np.median(times)), torch.cuda.max_memory_allocated()
+
+
+def phase_sformer(dev, smi):
+    """The Sformer serving path at full width: video -> SimDR logits ->
+    joints, f32 with kernels and plain, then the bf16 mode."""
+    from hiddenpose_tpu_torch.config import t128_config
+    from hiddenpose_tpu_torch.models.sformer import build_sformer, serve_video
+    from hiddenpose_tpu_torch.ops import kernels as K
+
+    cfg = t128_config().model
+    t0 = time.perf_counter()
+    weights = sformer_weights(cfg)
+    model = build_sformer(cfg, device=dev, dtype="float32")
+    model.load_state_dict(weights)
+    videos = sformer_videos(dev)
+    n_tokens = cfg.num_joints + 128 * (128 // cfg.patch_size) ** 2
+    log(f"[7 sformer] dim {cfg.patch_feature_dim} depth {cfg.depth} heads "
+        f"{cfg.heads} x {cfg.dim_head}, {n_tokens} tokens, weights and 2 "
+        f"videos in {time.perf_counter() - t0:.1f} s")
+    serve_video(model, videos[0])  # warm-up: cuBLAS, the kernel library
+    torch.cuda.synchronize()
+
+    # the main path: a few captures answered one at a time
+    K.reset_launch_counts()
+    answers, lat = [], []
+    for v in (videos[0], videos[1], videos[0]):
+        t0 = time.perf_counter()
+        joints, out = serve_video(model, v)
+        joints = joints.cpu().numpy()  # the completion fence
+        lat.append((time.perf_counter() - t0) * 1000)
+        answers.append((joints, out))
+    counts = K.launch_counts()
+    want = {k: (3 * SFORMER_LAUNCHES_PER_FORWARD if k in K.SFORMER else 0)
+            for k in counts}
+    log(f"[7 sformer] 3 captures, f32, kernels: {[round(x, 2) for x in lat]} "
+        f"ms each (host clock, fetch included); launch counts {counts}  "
+        f"[{smi}]")
+    if counts != want:
+        raise RuntimeError(f"sformer launch counts {counts}, expected {want}")
+    for joints, out in answers:
+        if out.shape != (1, cfg.num_joints, 4, cfg.out_dim // 4) \
+                or joints.shape != (1, cfg.num_joints, 3) \
+                or not bool(torch.isfinite(out).all()) \
+                or not np.isfinite(joints).all():
+            raise RuntimeError(f"bad sformer output {tuple(out.shape)}")
+
+    # the comparison below means something only if the joints spread over
+    # the bins, move with the video, and the logits depend on the tables
+    (j0, out0), (j1, _), _ = answers
+    spread = float(np.ptp(j0, axis=1).min())
+    moved = float(np.abs(j0 - j1).max())
+    model.rotary_emb, model.pos_emb = False, torch.zeros(1, 1, 1, device=dev)
+    _, no_rot = serve_video(model, videos[0])
+    model.rotary_emb = True
+    del model.pos_emb
+    rot_rel = ((no_rot - out0).abs().max() / out0.abs().max()).item()
+    log(f"[7 sformer] joints spread over joints {spread:.2f} image units "
+        f"(smallest axis), moved by up to {moved:.2f} between two videos; "
+        f"without the rotary tables the logits move by {rot_rel:.3f} of "
+        f"their max; logit range [{out0.min().item():.3g}, "
+        f"{out0.max().item():.3g}]")
+    if spread < 1.0 or moved < 0.05 or rot_rel < 100 * SFORMER_TOL:
+        raise RuntimeError("the sformer check cannot tell a wrong model")
+
+    outs = {}
+    for flag in (True, False):
+        model.set_use_kernels(flag)
+        with deterministic(warn_only=True):
+            outs[flag] = serve_video(model, videos[0])
+    rel = ((outs[True][1] - outs[False][1]).abs().max()
+           / outs[False][1].abs().max()).item()
+    j_bins = 2 * (outs[True][0] - outs[False][0]).abs().max().item()
+    log(f"[7 sformer] kernels vs plain: logits max rel err {rel:.3e} "
+        f"(tolerance {SFORMER_TOL}), joints max err {j_bins:.3e} bins "
+        f"(tolerance {SFORMER_JOINT_TOL})")
+    if not rel <= SFORMER_TOL or not j_bins <= SFORMER_JOINT_TOL:
+        raise RuntimeError("sformer: kernels and plain versions disagree")
+
+    timing = {True: [], False: []}
+    for flag in (True, False, True, False):
+        model.set_use_kernels(flag)
+        ms, peak = _median_ms(lambda: serve_video(model, videos[0]))
+        timing[flag].append(dict(ms_per_capture=ms, peak_memory_bytes=peak))
+    model.set_use_kernels(True)
+    for flag, runs in timing.items():
+        log(f"[7 sformer] f32 {'kernels' if flag else 'plain'}: "
+            f"{[round(r['ms_per_capture'], 2) for r in runs]} ms per capture "
+            f"(median of 5 each), peak memory "
+            f"{runs[0]['peak_memory_bytes'] / 2**30:.3f} GiB  [{smi}]")
+    del model, outs, answers, no_rot
+    torch.cuda.empty_cache()
+
+    # the bfloat16 mode: bf16 Dense layers, f32 norms and residual stream
+    model = build_sformer(cfg, device=dev, dtype="bfloat16")
+    model.load_state_dict(weights)
+    K.reset_launch_counts()
+    joints_b, out_b = serve_video(model, videos[0])
+    n_bf16 = K.launch_counts()["attend"]
+    bf_rel = ((out_b.float() - out0).abs().max() / out0.abs().max()).item()
+    bf_bins = 2 * float(np.abs(joints_b.cpu().numpy() - j0).max())
+    # kernels vs plain in this mode: K9 on (f32 q/k, bf16 v)
+    outs = {}
+    for flag in (True, False):
+        model.set_use_kernels(flag)
+        with deterministic(warn_only=True):
+            outs[flag] = serve_video(model, videos[0])[1].float()
+    model.set_use_kernels(True)
+    bf_k_rel = ((outs[True] - outs[False]).abs().max()
+                / outs[False].abs().max()).item()
+    ms_b, peak_b = _median_ms(lambda: serve_video(model, videos[0]))
+    log(f"[7 sformer] bf16 mode: {ms_b:.2f} ms per capture, peak memory "
+        f"{peak_b / 2**30:.3f} GiB, {n_bf16} kernel launches a forward, "
+        f"logits {out_b.dtype}; kernels vs plain max rel err {bf_k_rel:.3e} "
+        f"(tolerance {SFORMER_BF16_KERNELS_TOL}); max err vs f32 "
+        f"{bf_rel:.3e} of the max (limit {SFORMER_BF16_TOL}), joints up to "
+        f"{bf_bins:.2f} bins off  [{smi}]")
+    if out_b.dtype != torch.bfloat16 or not bf_rel <= SFORMER_BF16_TOL \
+            or not bf_k_rel <= SFORMER_BF16_KERNELS_TOL \
+            or n_bf16 != SFORMER_LAUNCHES_PER_FORWARD \
+            or not bool(torch.isfinite(out_b.float()).all()):
+        raise RuntimeError("sformer bf16 mode is off")
+    res = dict(tokens=n_tokens, latency_ms=lat, launches=counts,
+               joints_spread=spread, joints_moved_between_videos=moved,
+               no_rotary_rel=rot_rel, logits_max_rel_err=rel,
+               joints_max_err_bins=j_bins,
+               f32={"kernels": timing[True], "plain": timing[False]},
+               bf16=dict(ms_per_capture=ms_b, peak_memory_bytes=peak_b,
+                         logits_rel_err_vs_f32=bf_rel,
+                         kernels_vs_plain_rel_err=bf_k_rel,
+                         joints_err_bins_vs_f32=bf_bins, launches=n_bf16))
+    return res, counts
+
+
+def phase_probes(dev):
+    """The four stem probes, through the script a user would run; then
+    each probe kernel against its plain version, timed."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_diag_stem_paired as diag
+
+    from hiddenpose_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    results = diag.run_probes(dev)
+    counts = K.launch_counts()
+    for r in results:
+        log(f"[8 probes] {r['probe']}: max err {r['err']:.3e} (limit "
+            f"{r['tol']:g}) {'ok' if r['ok'] else 'FAILED'}")
+    want = {k: 0 for k in counts}
+    want.update(probe_im2col=1, probe_slice_transpose=1, probe_dot_f32=2)
+    if counts != want or not all(r["ok"] for r in results):
+        raise RuntimeError(f"probes failed: {results}; launches {counts}")
+
+    inp = diag.probe_inputs(dev)
+    rows = {}
+    x = inp["x_a"]
+    row = compare("probe_im2col (8,8,8,128)->(80,8,128)",
+                  lambda: K.probe_im2col(x), lambda: K.probe_im2col_ref(x),
+                  iters=20, exact=True, moved=nbytes(x) + 4 * 80 * 8 * 128,
+                  tag="8 probes")
+    row["per_run"] = 1
+    rows["probe_im2col"] = [row]
+    xb = inp["x_b"]
+    row = compare("probe_slice_transpose (512,128)->2x(64,512)",
+                  lambda: K.probe_slice_transpose(xb),
+                  lambda: K.probe_slice_transpose_ref(xb), iters=20,
+                  exact=True, moved=2 * nbytes(xb), tag="8 probes")
+    row["per_run"] = 1
+    rows["probe_slice_transpose"] = [row]
+    rows["probe_dot_f32"] = []
+    a = inp["a"]
+    for b in (inp["b"], inp["b64"]):
+        m, kk = a.shape
+        n = b.shape[1]
+        scale = K.probe_dot_f32_ref(a, b).abs().max().item()
+        row = compare(f"probe_dot_f32 ({m},{kk})@({kk},{n})",
+                      lambda: K.probe_dot_f32(a, b),
+                      lambda: K.probe_dot_f32_ref(a, b), iters=20,
+                      atol=DOT_PROBE_TOL * scale,
+                      library_fn=lambda: torch.matmul(a, b),
+                      moved=nbytes(a, b) + 4 * m * n,
+                      ops=[(2 * m * kk * n, "f32")], tag="8 probes")
+        row["per_run"] = 1
+        rows["probe_dot_f32"].append(row)
+    return rows, counts, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -672,27 +1054,50 @@ def main() -> int:
     del server
     torch.cuda.empty_cache()
     train, train_counts = timed("6 train", phase_train, dev, smi)
+    torch.cuda.empty_cache()
+    sformer, sformer_counts = timed("7 sformer", phase_sformer, dev, smi)
+    probe_rows, probe_counts, probes = timed("8 probes", phase_probes, dev)
+    rows.update(probe_rows)
 
     from hiddenpose_tpu_torch.ops.kernels import KERNELS
 
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
+        # Times are summed over one unit of the kernel's main path: one b2
+        # train step's calls (one b2 serving forward's for the stem conv,
+        # one f32 Sformer forward's for attend, one run of the probe
+        # script for a probe); a shape the unit does not call weighs 0.
         r = rows[name]
-        per = [x.get("per_step", x.get("per_forward")) for x in r]
+        per = [x.get("per_step", x.get("per_forward", x.get("per_run")))
+               for x in r]
+        on_path = [x for x, n in zip(r, per) if n]
+
+        def total(key):
+            return sum(x[key] * n for x, n in zip(r, per) if n)
+
+        by_bytes = sum(x["bound_ms"] * n for x, n in zip(r, per)
+                       if n and x["bound_by"] == "bytes")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            # the serving burst's launches plus the 3 train steps'
-            launches=serve_counts[name] + train_counts[name],
-            max_abs_err=max(x["max_abs_err"] for x in r),
-            # device time of one b2 train step's calls to this kernel (one
-            # b2 forward's, for the serving-only stem conv)
-            ms=sum(x["ms"] * n for x, n in zip(r, per)),
-            plain_ms=sum(x["plain_ms"] * n for x, n in zip(r, per))))
+            # each main path's launches, counted from 0 just before it:
+            # the serving burst, the 3 train steps, the 3 Sformer
+            # captures, the probe script
+            launches=(serve_counts[name] + train_counts[name]
+                      + sformer_counts[name] + probe_counts[name]),
+            max_abs_err=max(x["max_abs_err"] for x in on_path),
+            max_abs_err_all_shapes=max(x["max_abs_err"] for x in r),
+            ms=total("ms"), plain_ms=total("plain_ms"),
+            bound_ms=total("bound_ms"),
+            bound_by=("bytes" if by_bytes >= total("bound_ms") / 2
+                      else "operations"),
+            library_ms=(total("library_ms") if all(
+                x["library_ms"] is not None for x in on_path) else None)))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
-        device=smi, seconds=seconds, kernels=rows, serve=serve,
-        end_to_end=e2e, train=train), indent=1))
+        device=smi, seconds=seconds, kernels=rows, kernels_line=kernels,
+        serve=serve, end_to_end=e2e, train=train, sformer=sformer,
+        probes=probes), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The model and training configuration of the ported paths.
 
-The fields of ``hiddenpose_tpu/config.py::ModelConfig`` that the inference
-path reads, and ``TrainConfig`` field for field, with the same defaults and
-the same presets, so the port runs where the JAX package is not installed.  Any object with these attributes
+The fields of ``hiddenpose_tpu/config.py::ModelConfig`` that the ported
+paths read (NlosPose and the transformer family), and ``TrainConfig`` field
+for field, with the same defaults and the same presets, so the port runs
+where the JAX package is not installed.  Any object with these attributes
 (the JAX package's ``Config`` included) is accepted wherever a config is.
 """
 
@@ -24,10 +25,22 @@ class ModelConfig:
     time_size: int = 512
     image_size: Tuple[int, int] = (256, 256)
     heatmap_size: Tuple[int, int, int] = (64, 64, 64)
+    patch_size: int = 4
     mode: str = "lct"  # 'lct' | 'bp'
     material: str = "diffuse"  # 'diffuse' | 'specular'
     num_joints: int = 24
     backbone: str = "posenet3d_50"
+    # Transformer family (``models/sformer.py::sformer_from_config``)
+    patch_feature_dim: int = 256
+    depth: int = 8
+    heads: int = 8
+    dim_head: int = 32
+    rotary_emb: bool = True
+    out_dim: int = (64 * 2 + 128) * 2
+    num_frames: int = 16
+    # activation dtype of the transformer's Linear layers: 'float32' or
+    # 'bfloat16' (parameters stay float32 and are cast at use)
+    compute_dtype: str = "float32"
     # LCT FFT batch chunking (0 = fully batched)
     lct_batch_chunk: int = 0
 

@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from hiddenpose_tpu_torch import resolve_device
 from hiddenpose_tpu_torch.config import ModelConfig
 from hiddenpose_tpu_torch.models.blocks import (
     FeatureExtraction,
@@ -100,17 +101,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.weights.copy_(corner_mask(m.weights.shape[1]))
 
 
-def build_nlospose(cfg: ModelConfig, device="cpu",
+def build_nlospose(cfg: ModelConfig, device="cuda",
                    seed: int = 0) -> Tuple[NlosPose, LCTParams]:
     """The eval-mode model on ``device`` with random weights from ``seed``,
-    plus its LCT constants.
+    plus its LCT constants.  ``device`` defaults to the GPU and raises
+    without one; pass ``device="cpu"`` to run on the CPU.
 
     For a CUDA device this turns TF32 off for cuDNN convolutions and
     matmuls: the path is full float32, as the JAX package's 'highest'
     precision.  The flags are process-wide, so they are set once here and
     never toggled around a forward, where two forwards in flight (two
     servers, or a caller beside the server's pump) would race on them."""
-    if torch.device(device).type == "cuda":
+    device = resolve_device(device)
+    if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     model = NlosPose(cfg)

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels of the inference path and the train step.
+"""The hand-written CUDA kernels of the NlosPose inference path and train
+step, of the Sformer's grouped attention, and the stem probes.
 
 Each module holds the wrappers (which launch a kernel for a CUDA tensor
 and count the launch), the plain PyTorch version of each, the
@@ -8,6 +9,11 @@ through them, and a note on the TPU kernel each replaces.
 
 from __future__ import annotations
 
+from hiddenpose_tpu_torch.ops.kernels.attn import (
+    attend,
+    attend_diff,
+    attend_ref,
+)
 from hiddenpose_tpu_torch.ops.kernels.conv3mxu import (
     conv3_mxu,
     conv3_mxu_diff,
@@ -35,6 +41,14 @@ from hiddenpose_tpu_torch.ops.kernels.pool2p import (
     max_pool2_bwd,
     max_pool2_bwd_ref,
     max_pool2_diff,
+)
+from hiddenpose_tpu_torch.ops.kernels.probes import (
+    probe_dot_f32,
+    probe_dot_f32_ref,
+    probe_im2col,
+    probe_im2col_ref,
+    probe_slice_transpose,
+    probe_slice_transpose_ref,
 )
 from hiddenpose_tpu_torch.ops.kernels.stem_conv import (
     stem_conv_raw,
@@ -88,13 +102,39 @@ KERNELS = {
         "hiddenpose_tpu_torch/csrc/pool2p.cu",
         "hiddenpose_tpu/ops/pallas/pool2p.py:129",
     ),
+    "attend": (
+        attend, attend_ref,
+        "hiddenpose_tpu_torch/csrc/attn.cu",
+        "hiddenpose_tpu/ops/pallas/attn_vmem.py:101",
+    ),
+    "probe_im2col": (
+        probe_im2col, probe_im2col_ref,
+        "hiddenpose_tpu_torch/csrc/diag_probes.cu",
+        "scripts/tpu_diag_stem_paired.py:57",
+    ),
+    "probe_slice_transpose": (
+        probe_slice_transpose, probe_slice_transpose_ref,
+        "hiddenpose_tpu_torch/csrc/diag_probes.cu",
+        "scripts/tpu_diag_stem_paired.py:89",
+    ),
+    "probe_dot_f32": (
+        probe_dot_f32, probe_dot_f32_ref,
+        "hiddenpose_tpu_torch/csrc/diag_probes.cu",
+        "scripts/tpu_diag_stem_paired.py:109",
+    ),
 }
 
-# The kernels the eval (serving) forward launches; the train step launches
-# all but stem_conv_raw (training keeps the library stem conv, as the JAX
-# package does).
+# The kernels NlosPose's eval (serving) forward launches; its train step
+# launches all of NlosPose's but stem_conv_raw (training keeps the library
+# stem conv, as the JAX package does).  The Sformer's and TimeSformer's
+# forward launches "attend"; the probes run from
+# scripts/torch_diag_stem_paired.py.
 SERVING = ("conv3_planes", "stem_conv_raw", "maxpool3d_k3s2p1", "conv3_mxu")
-TRAINING = tuple(k for k in KERNELS if k != "stem_conv_raw")
+TRAINING = ("conv3_planes", "maxpool3d_k3s2p1", "conv3_mxu", "conv3_mxu_dx",
+            "conv3_planes_adjoint", "conv3_planes_wgrad",
+            "maxpool3d_k3s2p1_vjp", "max_pool2_bwd")
+SFORMER = ("attend",)
+PROBES = ("probe_im2col", "probe_slice_transpose", "probe_dot_f32")
 
 
 def launch_counts() -> dict:

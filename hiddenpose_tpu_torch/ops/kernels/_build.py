@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("conv3p.cu", "stem_conv.cu", "phase_pool.cu", "conv3mxu.cu",
            "conv3p_adjoint.cu", "conv3p_wgrad.cu", "phase_pool_vjp.cu",
-           "pool2p.cu")
+           "pool2p.cu", "attn.cu", "diag_probes.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # Every entry point returns its cudaError_t as an int; pointers and the
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
@@ -48,6 +49,10 @@ SIGNATURES = {
     "hp_conv3p_wgrad": [_P] * 5 + [_I] * 8 + [_P],
     "hp_maxpool3d_k3s2p1_vjp": [_P] * 3 + [_I] * 8 + [_P],
     "hp_maxpool2_bwd": [_P] * 3 + [_I] * 7 + [_P],
+    "hp_attend_fwd": [_P] * 4 + [_L] + [_I] * 5 + [_P],
+    "hp_probe_im2col": [_P] * 2 + [_P],
+    "hp_probe_slice_transpose": [_P] * 3 + [_I] * 2 + [_P],
+    "hp_probe_dot_f32": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -156,13 +161,15 @@ def no_grad_inputs(name: str, *tensors, use: str) -> None:
             f"kernel is not differentiable, use {use}")
 
 
-def check(t, name: str, *, shape=None, device=None, aligned: bool = False):
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device``; ``aligned`` also requires 16-byte alignment (float4 loads)."""
+def check(t, name: str, *, shape=None, device=None, aligned: bool = False,
+          dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (float32 unless
+    given) and ``shape`` on ``device``; ``aligned`` also requires 16-byte
+    alignment (float4 loads)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

@@ -1,0 +1,134 @@
+"""The four probe kernels of the stem conv's building blocks.
+
+Replace the four ``pl.pallas_call``s of ``scripts/tpu_diag_stem_paired.py``
+(``check_a`` ``:57``, ``check_b`` ``:89``, ``check_c`` ``:109`` and
+``:126``).  On the TPU they isolated which lowered op of the paired-lane
+stem kernel mis-computed; here each is a tiny hand-written CUDA kernel
+(``csrc/diag_probes.cu``) of an operation ``csrc/stem_conv.cu`` relies on,
+held against the numpy / torch expression the TPU script compares with:
+
+* A, :func:`probe_im2col`: the paired im2col store through a
+  shared-memory tile, x (8, 8, 8, 128) -> patches (80, 8, 128); exact;
+* B, :func:`probe_slice_transpose`: (M, N) -> ``x[:, :N/2].T`` and
+  ``x[:, N/2:].T`` by shared-memory tiled transposes; exact;
+* C and C64, :func:`probe_dot_f32`: a float32 SIMT FMA tiled matrix
+  product (no TF32) at N = 128 and N = 64, against ``torch.matmul``.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.  ``scripts/torch_diag_stem_paired.py`` runs
+them on the GPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hiddenpose_tpu_torch.ops.kernels import _build
+
+# The probe's fixed geometry (scripts/tpu_diag_stem_paired.py:36-37).
+CIN, TD, TH = 8, 4, 4
+NC = TD // 2 * TH          # 8 paired columns
+ROWS = 2 * 5 * CIN         # (ah, aw, cin) rows of the patch matrix
+X_SHAPE = (CIN, TD + 4, TH + 4, 128)
+
+
+def _dispatch(name, x, ref, launch, wrapper):
+    """Plain version on the CPU, the kernel on CUDA, else raise."""
+    _build.no_grad_inputs(name, x, use="torch.no_grad()")
+    if x.device.type == "cpu":
+        return ref()
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    out = launch()
+    wrapper.launches += 1
+    return out
+
+
+def probe_im2col_ref(x):
+    """Plain version: the slice-assignment loop of the TPU script."""
+    want = torch.zeros((ROWS, NC, 128), dtype=x.dtype, device=x.device)
+    for ah in range(2):
+        for aw in range(5):
+            off = (ah * 5 + aw) * CIN
+            for dd in range(TD):
+                d2, lsb = dd // 2, dd % 2
+                want[off:off + CIN, d2 * TH:(d2 + 1) * TH,
+                     lsb * 64:(lsb + 1) * 64] = \
+                    x[:, ah + dd, ah:ah + TH, aw:aw + 64]
+    return want
+
+
+def probe_im2col(x):
+    """x (8, 8, 8, 128) float32 -> patches (80, 8, 128): row
+    (ah*5 + aw)*8 + cin, sub-tile row d2*4 + h, lane half lsb*64 + w holds
+    ``x[cin, ah + 2*d2 + lsb, ah + h, aw + w]``."""
+    _build.check(x, "x", shape=X_SHAPE, device=x.device, aligned=True)
+
+    def launch():
+        out = torch.empty((ROWS, NC, 128), device=x.device,
+                          dtype=torch.float32)
+        _build.launch("hp_probe_im2col", x.data_ptr(), out.data_ptr())
+        return out
+
+    return _dispatch("probe_im2col", x, lambda: probe_im2col_ref(x), launch,
+                     probe_im2col)
+
+
+probe_im2col.launches = 0
+
+
+def probe_slice_transpose_ref(x):
+    half = x.shape[1] // 2
+    return x[:, :half].T.contiguous(), x[:, half:].T.contiguous()
+
+
+def probe_slice_transpose(x):
+    """x (M, N) float32, N even -> (``x[:, :N/2].T``, ``x[:, N/2:].T``),
+    each (N/2, M)."""
+    if x.dim() != 2 or x.shape[1] % 2:
+        raise ValueError(f"x must be (M, N) with N even, got {tuple(x.shape)}")
+    _build.check(x, "x", device=x.device)
+    m, n = x.shape
+
+    def launch():
+        lo = torch.empty((n // 2, m), device=x.device, dtype=torch.float32)
+        hi = torch.empty_like(lo)
+        _build.launch("hp_probe_slice_transpose", x.data_ptr(),
+                      lo.data_ptr(), hi.data_ptr(), m, n)
+        return lo, hi
+
+    return _dispatch("probe_slice_transpose", x,
+                     lambda: probe_slice_transpose_ref(x), launch,
+                     probe_slice_transpose)
+
+
+probe_slice_transpose.launches = 0
+
+
+def probe_dot_f32_ref(a, b):
+    """Plain version: ``torch.matmul`` (full float32 where TF32 is off)."""
+    return torch.matmul(a, b)
+
+
+def probe_dot_f32(a, b):
+    """a (M, K) @ b (K, N), float32 FMA, f32 accumulation -> (M, N)."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"a (M, K) and b (K, N) expected, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    _build.check(a, "a", device=a.device)
+    _build.check(b, "b", device=a.device)
+    _build.no_grad_inputs("probe_dot_f32", b, use="torch.no_grad()")
+    m, k = a.shape
+    n = b.shape[1]
+
+    def launch():
+        out = torch.empty((m, n), device=a.device, dtype=torch.float32)
+        _build.launch("hp_probe_dot_f32", a.data_ptr(), b.data_ptr(),
+                      out.data_ptr(), m, k, n)
+        return out
+
+    return _dispatch("probe_dot_f32", a, lambda: probe_dot_f32_ref(a, b),
+                     launch, probe_dot_f32)
+
+
+probe_dot_f32.launches = 0

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hiddenpose_tpu_torch import resolve_device
 from hiddenpose_tpu_torch.ops import psf as psf_ops
 
 C_LIGHT = 3e8
@@ -44,10 +45,12 @@ class LCTParams:
 def make_lct_params(image_size: int, time_size: int, bin_len: float,
                     wall_size: float = 2.0, mode: str = "lct",
                     material: str = "diffuse", snr: float = 1e-1,
-                    device="cpu") -> LCTParams:
-    """Precompute the LCT constants on the host and move them to ``device``.
+                    device="cuda") -> LCTParams:
+    """Precompute the LCT constants on the host and move them to ``device``
+    (the GPU by default; raises without one unless ``device="cpu"``).
 
     slope = (wall_size / 2) / (T * bin_len), as in the JAX package."""
+    device = resolve_device(device)
     if 2 ** int(np.log2(time_size)) != time_size:
         raise ValueError(f"time_size must be a power of 2, got {time_size}")
     if mode not in ("lct", "bp"):

@@ -1,9 +1,11 @@
-"""Soft-argmax joint decoding from 3D heatmaps.
+"""Soft-argmax joint decoding: from 3D heatmaps and from SimDR logits.
 
-Port of ``hiddenpose_tpu/ops/softargmax.py::softmax_integral``: a global
-softmax over each joint's flattened heatmap, then the expected coordinate
-along each axis from the marginals.  Like the reference, it does not
-re-centre: coordinates are in heatmap-voxel units 0..dim.
+Port of ``hiddenpose_tpu/ops/softargmax.py``.  ``softmax_integral``: a
+global softmax over each joint's flattened heatmap, then the expected
+coordinate along each axis from the marginals.  Like the reference, it
+does not re-centre: coordinates are in heatmap-voxel units 0..dim.
+``simdr_decode``: the expected bin of each axis's classification logits,
+the decoding of the Sformer's head.
 """
 
 from __future__ import annotations
@@ -31,3 +33,17 @@ def softmax_integral(heatmaps: torch.Tensor, num_joints: int) -> torch.Tensor:
         [expect(marg_x, x_dim), expect(marg_y, y_dim), expect(marg_z, z_dim)],
         dim=2)
     return coords.reshape(b, num_joints * 3)
+
+
+def simdr_decode(logits_xyz: torch.Tensor,
+                 split_ratio: float = 2.0) -> torch.Tensor:
+    """Decode per-axis SimDR classification logits to coordinates.
+
+    Port of ``hiddenpose_tpu/ops/softargmax.py::simdr_decode``.
+    logits_xyz: (B, J, 3, K), the per-axis bin logits (the first three of
+    the four slots of ``NlosPoseSformer``'s output).  Returns (B, J, 3)
+    float32 expected coordinates in image units (bin / split_ratio)."""
+    probs = torch.softmax(logits_xyz.float(), dim=-1)
+    bins = torch.arange(logits_xyz.shape[-1], dtype=torch.float32,
+                        device=logits_xyz.device)
+    return (probs * bins).sum(dim=-1) / split_ratio

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hiddenpose_tpu_torch import resolve_device
 from hiddenpose_tpu_torch.config import Config, t128_config
 from hiddenpose_tpu_torch.models.nlospose import build_nlospose
 from hiddenpose_tpu_torch.train.step import make_forward
@@ -47,7 +48,8 @@ class InferenceServer:
     dtype : 'float32' (the only precision ported so far).
     max_wait_ms : how long the pump holds an open batch for more arrivals
         before flushing it padded.
-    device : where the model runs, e.g. 'cuda:0' or 'cpu'.
+    device : where the model runs; the GPU by default (raises without
+        one), 'cpu' only when asked for.
     """
 
     def __init__(
@@ -59,7 +61,7 @@ class InferenceServer:
         dtype: str = "float32",
         max_wait_ms: float = 5.0,
         rng_seed: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         if dtype != "float32":
             raise NotImplementedError(
@@ -67,7 +69,7 @@ class InferenceServer:
         self.cfg = cfg if cfg is not None else t128_config()
         self.batch_size = int(batch_size)
         self.max_wait = float(max_wait_ms) / 1000.0
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model, self.lct = build_nlospose(
             self.cfg.model, device=self.device, seed=rng_seed)
         if state_dict is not None:

@@ -25,6 +25,15 @@ both Adam moments as they carry weights):
 * every BatchNorm gets ``num_batches_tracked = 0`` in a state_dict, which
   the importer ignores.
 
+The transformer family (``NlosPoseSformer``, ``TimeSformer``) has no
+table: its port names are the flax paths joined by dots, so the map is a
+walk of the tree (:func:`sformer_state_dict_from_jax` and, back,
+:func:`sformer_params_to_jax`; like the two above they carry gradients as
+they carry weights): flax ``Dense.kernel`` is
+(in, out) and ``nn.Linear.weight`` (out, in); LayerNorm ``scale`` is
+``weight``; the GEGLU's ``in`` / ``out`` are ``proj_in`` / ``proj_out``;
+``joints_token``, ``cls_token`` and ``pos_emb`` go as they are.
+
 Pure numpy in, torch tensors out (and back); no jax import.
 """
 
@@ -133,10 +142,46 @@ def _to_jax(t, kind) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
-def from_jax(tree: Mapping, collection: str = "params"
-             ) -> Dict[str, torch.Tensor]:
-    """A tree shaped like the JAX ``collection`` (params, their gradients
-    or Adam moments; or batch_stats) -> {port name: tensor}."""
+def sformer_state_dict_from_jax(params: Mapping,
+                                prefix=()) -> Dict[str, torch.Tensor]:
+    """The ``"params"`` tree of the JAX ``NlosPoseSformer`` or
+    ``TimeSformer`` (numpy leaves) -> the port model's state_dict."""
+    out = {}
+    for key, leaf in params.items():
+        if isinstance(leaf, Mapping):
+            mod = f"proj_{key}" if key in ("in", "out") else key
+            out.update(sformer_state_dict_from_jax(leaf, (*prefix, mod)))
+            continue
+        a = np.array(leaf, dtype=np.float32)  # writable copy
+        if key == "kernel":
+            key, a = "weight", np.ascontiguousarray(a.T)
+        elif key == "scale":
+            key = "weight"
+        out[".".join((*prefix, key))] = torch.from_numpy(a)
+    return out
+
+
+def sformer_params_to_jax(named: Mapping[str, torch.Tensor]) -> Dict:
+    """{port name: tensor} of an ``NlosPoseSformer`` or ``TimeSformer``
+    (a state_dict, ``named_parameters()``) -> the JAX ``"params"`` tree."""
+    tree: Dict = {}
+    for name, t in named.items():
+        *mods, key = name.split(".")
+        a = t.detach().cpu().float().numpy()
+        if key == "weight":
+            key, a = ("kernel", a.T) if a.ndim == 2 else ("scale", a)
+        node = tree
+        for mod in mods:
+            mod = mod[len("proj_"):] if mod in ("proj_in", "proj_out") else mod
+            node = node.setdefault(mod, {})
+        node[key] = np.ascontiguousarray(a)
+    return tree
+
+
+def from_jax(tree: Mapping,
+             collection: str = "params") -> Dict[str, torch.Tensor]:
+    """A tree shaped like the JAX NlosPose's ``collection`` (params, their
+    gradients or Adam moments; or batch_stats) -> {port name: tensor}."""
     out = {}
     for name, coll, path, kind in _layout():
         if coll == collection:
@@ -147,11 +192,12 @@ def from_jax(tree: Mapping, collection: str = "params"
     return out
 
 
-def to_jax(named: Mapping[str, torch.Tensor], collection: str = "params"
-           ) -> Dict:
+def to_jax(named: Mapping[str, torch.Tensor],
+           collection: str = "params") -> Dict:
     """{port name: tensor} (e.g. ``named_parameters()``, their ``.grad``
     or Adam's ``exp_avg``) -> the nested dict of numpy arrays shaped like
-    the JAX ``collection``.  Every name of the collection must be there."""
+    the JAX NlosPose's ``collection``.  Every name of the collection must
+    be there."""
     tree: Dict = {}
     for name, coll, path, kind in _layout():
         if coll != collection:

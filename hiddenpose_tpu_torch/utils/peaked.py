@@ -1,4 +1,4 @@
-"""Seeded random weights that make peaked heatmaps.
+"""Seeded random weights that make peaked heatmaps and peaked SimDR logits.
 
 The reference initialisation (``models/nlospose.py::init_weights``) gives
 near-uniform heatmaps: every joint sits at the volume centre whatever the
@@ -7,6 +7,8 @@ These weights keep activations at unit scale through the network (fan-in
 scaled convs, random norm affines and BatchNorm statistics) so the
 heatmaps are peaked and the joints spread over the volume.  Tests and the
 GPU smoke run use them to hold the port against its references.
+:func:`peaked_transformer_state_dict` is the recipe for the transformer
+family (peaked attention rows and SimDR logits).
 """
 
 from __future__ import annotations
@@ -15,6 +17,11 @@ from typing import Dict
 
 import torch
 from torch import nn
+
+# Gains of the transformer recipe.  Constants, not options: every
+# kernels-vs-plain and port-vs-JAX comparison is read at these values.
+QK_GAIN = 2.0
+HEAD_GAIN = 8.0
 
 
 @torch.no_grad()
@@ -39,5 +46,41 @@ def peaked_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             # a k4 s2 transposed conv sums 2^3 taps of each input channel
             fan_in = shape[0] * 8 if name in deconvs else t[0].numel()
             v = torch.randn(shape, generator=g) * fan_in ** -0.5
+        sd[name] = v
+    return sd
+
+
+@torch.no_grad()
+def peaked_transformer_state_dict(model: nn.Module,
+                                  seed: int) -> Dict[str, torch.Tensor]:
+    """A CPU state_dict for an ``NlosPoseSformer`` or ``TimeSformer``
+    (names and shapes only are read), from ``seed``.
+
+    With flax's initialisers the attention rows are near-uniform and the
+    SimDR logits near-flat: every joint decodes to the middle bin whatever
+    q, k or the rotary tables are.  Here the q and k rows of every
+    ``to_qkv`` are fan-in scaled times ``QK_GAIN`` (scores of spread
+    ``QK_GAIN ** 2``: peaked softmax rows), ``out_proj`` times
+    ``HEAD_GAIN`` (peaked logits), the summary tokens and the position
+    embedding have unit and half-unit scale, and biases and LayerNorm
+    affines are random."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, t in model.state_dict().items():
+        shape = t.shape
+        if name in ("joints_token", "cls_token"):
+            v = torch.randn(shape, generator=g)
+        elif name == "pos_emb":
+            v = 0.5 * torch.randn(shape, generator=g)
+        elif name.endswith("bias"):
+            v = 0.1 * torch.randn(shape, generator=g)
+        elif t.dim() == 1:  # LayerNorm weights
+            v = 1.0 + 0.1 * torch.randn(shape, generator=g)
+        else:  # Linear weights (out, in), fan-in scaled
+            v = torch.randn(shape, generator=g) * shape[1] ** -0.5
+            if name.endswith("to_qkv.weight"):
+                v[: 2 * shape[0] // 3] *= QK_GAIN
+            elif name == "out_proj.weight":
+                v *= HEAD_GAIN
         sd[name] = v
     return sd

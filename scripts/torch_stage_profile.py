@@ -1,4 +1,5 @@
-"""Where the time of the port's t128 forward and train step goes, on one GPU.
+"""Where the time of the port's t128 forward, train step and Sformer forward
+goes, on one GPU.
 
     python3 scripts/torch_stage_profile.py
 
@@ -14,9 +15,16 @@ off).  It measures:
    time by kernel, and the device's idle share (1 - busy / wall, busy the
    union of the device kernels' intervals);
 3. one t128 train step (``make_train_step``, batch ``make_batch([0, 1])``,
-   after one warm-up step) under ``torch.profiler``: the same readings.
+   after one warm-up step) under ``torch.profiler``: the same readings;
+4. one full-width float32 Sformer forward (``chip_smoke.py`` phase 7's
+   model, weights and video): per stage (patch embed; per layer LayerNorm,
+   qkv, joint-token read, rotary, grouped attention, out projection,
+   feed-forward; head; the rest: patchify, head splits, regrouping,
+   concatenations, residual adds), CUDA events, median of 5, kernels and
+   plain alternating; then the forward under ``torch.profiler``; then the
+   bfloat16 mode's stages.
 
-Prints both and writes them to ``chiprun_out/torch_stage_profile.json``.
+Prints them and writes them to ``chiprun_out/torch_stage_profile.json``.
 Imports no JAX.
 """
 
@@ -72,6 +80,123 @@ def stage_times(model, lct, meas, batch_chunk):
         hm)
     torch.cuda.synchronize()
     return {k: s.elapsed_time(e) for k, (s, e) in events.items()}
+
+
+SFORMER_STAGES = ("patch embed", "layernorm", "qkv", "joint read", "rotary",
+                  "grouped attention", "out proj", "feed-forward", "head",
+                  "other")
+
+
+def sformer_stage_times(model, video):
+    """ms per stage of one Sformer forward, summed over the layers: every
+    timed piece is wrapped in a pair of CUDA events; "other" is the whole
+    forward less the pieces."""
+    from hiddenpose_tpu_torch.models import sformer as S
+
+    events = []
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events.append((stage(*args) if callable(stage) else stage,
+                           start, end))
+            return out
+        return run
+
+    def attend_stage(q, k, v):
+        return ("joint read" if q.shape[1] == model.num_joints
+                else "grouped attention")
+
+    patched = []
+
+    def patch(obj, name, stage):
+        patched.append((obj, name, obj.__dict__.get(name)))
+        setattr(obj, name, timed(stage, getattr(obj, name)))
+
+    for name, m in model.named_modules():
+        leaf = name.split(".")[-1]
+        if name == "patch_embed":
+            patch(m, "forward", "patch embed")
+        elif name in ("out_ln", "out_proj"):
+            patch(m, "forward", "head")
+        elif isinstance(m, torch.nn.LayerNorm):
+            patch(m, "forward", "layernorm")
+        elif leaf == "to_qkv":
+            patch(m, "forward", "qkv")
+        elif leaf == "to_out":
+            patch(m, "forward", "out proj")
+        elif isinstance(m, S.GEGLUFeedForward):
+            patch(m, "forward", "feed-forward")
+        elif isinstance(m, S.JointTokenAttention):
+            patch(m, "_attend", attend_stage)
+    rotary = S.apply_rotary
+    S.apply_rotary = timed("rotary", rotary)
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        S.serve_video(model, video)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        S.apply_rotary = rotary
+        for obj, name, old in patched:
+            if old is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+    ms = dict.fromkeys(SFORMER_STAGES, 0.0)
+    for stage, s, e in events:
+        ms[stage] += s.elapsed_time(e)
+    total = start.elapsed_time(end)
+    ms["other"] = total - sum(ms.values())
+    return dict(ms, total=total)
+
+
+def sformer_profile(dev, smi):
+    """Stage table of the full-width Sformer forward (f32 kernels / plain,
+    then bf16) and its profile by device kernel."""
+    from hiddenpose_tpu_torch.config import t128_config
+    from hiddenpose_tpu_torch.models.sformer import build_sformer, serve_video
+
+    cfg = t128_config().model
+    weights = chip_smoke.sformer_weights(cfg)
+    video = chip_smoke.sformer_videos(dev, seeds=(0,))[0]
+    out = {}
+
+    def table(tag, model):
+        sformer_stage_times(model, video)  # warm
+        reps = [sformer_stage_times(model, video) for _ in range(5)]
+        med = {k: float(np.median([r[k] for r in reps])) for k in reps[0]}
+        print(f"[sformer stages] {tag} total {med['total']:.3f} ms "
+              + json.dumps({k: round(v, 3) for k, v in med.items()}),
+              flush=True)
+        return med
+
+    model = build_sformer(cfg, device=dev, dtype="float32")
+    model.load_state_dict(weights)
+    out["f32"] = []
+    for flag in (True, False, True, False):
+        model.set_use_kernels(flag)
+        out["f32"].append(dict(
+            use_kernels=flag,
+            ms=table(f"f32 use_kernels={flag}", model)))
+    model.set_use_kernels(True)
+    out["f32_profile"] = device_profile(
+        "sformer f32", lambda: serve_video(model, video))
+    del model
+    torch.cuda.empty_cache()
+    model = build_sformer(cfg, device=dev, dtype="bfloat16")
+    model.load_state_dict(weights)
+    out["bf16"] = table("bf16 use_kernels=True", model)
+    out["bf16_profile"] = device_profile(
+        "sformer bf16", lambda: serve_video(model, video))
+    print(smi, flush=True)
+    return out
 
 
 def busy_seconds(events) -> float:
@@ -188,12 +313,15 @@ def main() -> int:
     torch.cuda.synchronize()
     train = device_profile("train", lambda: step(state, batch, lct))
     print(smi, flush=True)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    sformer = sformer_profile(dev, smi)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "torch_stage_profile.json").write_text(json.dumps(dict(
         device=smi, stages=stages, burst=dict(requests=len(caps), **burst),
-        train_step=train), indent=1))
+        train_step=train, sformer=sformer), indent=1))
     return 0
 
 

@@ -1,0 +1,176 @@
+"""K9 (fused grouped attention) on the CPU: the port's plain version
+``attend_ref`` against the JAX package's Pallas kernel in interpret mode
+and against its ``attend_ref``; the ``autograd.Function``'s gradients
+against ``jax.grad`` of the JAX ``attend_fused``; the wrapper's argument
+checks and the router.  On a CPU tensor the wrapper runs the plain version,
+so these tests hold the arithmetic contract; the CUDA kernel itself is held
+against the plain version on the GPU (``tests/test_torch_kernels_cuda.py``,
+``chip_smoke.py``).
+
+Tolerances: float32 1e-5 (the two differ in summation order only; the JAX
+tests hold the TPU kernel to 1e-6 on these shapes, and torch's CPU bmm sums
+in another order than XLA's); bfloat16 2e-2 (one bf16 rounding of the
+probabilities and of the output); gradients 1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hiddenpose_tpu.ops.pallas import attn_vmem as jax_attn
+from hiddenpose_tpu_torch.ops.kernels import KERNELS
+from hiddenpose_tpu_torch.ops.kernels.attn import (
+    AttendFused,
+    attend,
+    attend_diff,
+    attend_ref,
+    attend_routed,
+    attend_supported,
+)
+
+# (B, Lq, Lk, dh): the shapes of tests/test_attn_vmem.py (ragged Lk below
+# and above 128, the Sformer's group shape at a small B, a small-Lq wide
+# head).
+SHAPES = [(3, 64, 80, 32), (2, 256, 131, 32), (1, 128, 1048, 32),
+          (2, 24, 640, 64)]
+
+
+def _qkv(shape, seed, q_scale=None):
+    b, lq, lk, dh = shape
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, lq, dh).astype(np.float32) * (
+        dh ** -0.5 if q_scale is None else q_scale)
+    k = rng.randn(b, lk, dh).astype(np.float32)
+    v = rng.randn(b, lk, dh).astype(np.float32)
+    return q, k, v
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(a).to(dtype)
+
+
+def _j(a, dtype=jnp.float32):
+    return jnp.asarray(a).astype(dtype)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attend_ref_matches_pallas_interpret_f32(shape):
+    q, k, v = _qkv(shape, 0)
+    got = attend(_t(q), _t(k), _t(v)).numpy()  # CPU tensor: the plain version
+    pallas = np.asarray(jax_attn._attend_fused_impl(
+        _j(q), _j(k), _j(v), interpret=True))
+    ref = np.asarray(jax_attn.attend_ref(_j(q), _j(k), _j(v)))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_attend_ref_extreme_logits():
+    """Logits x 50: the max-subtracted softmax stays finite and equal."""
+    q, k, v = _qkv((1, 8, 136, 8), 2, q_scale=50.0)
+    got = attend_ref(_t(q), _t(k), _t(v)).numpy()
+    pallas = np.asarray(jax_attn._attend_fused_impl(
+        _j(q), _j(k), _j(v), interpret=True))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("qk_dtype", ["bfloat16", "float32"])
+def test_attend_ref_matches_pallas_interpret_bf16_v(qk_dtype):
+    """(bf16, bf16, bf16) and the Sformer's bfloat16-mode combination,
+    float32 q/k with a bfloat16 v: output dtype and values."""
+    q, k, v = _qkv((2, 64, 200, 32), 1)
+    tq = torch.bfloat16 if qk_dtype == "bfloat16" else torch.float32
+    jq = jnp.bfloat16 if qk_dtype == "bfloat16" else jnp.float32
+    got = attend(_t(q, tq), _t(k, tq), _t(v, torch.bfloat16))
+    pallas = jax_attn._attend_fused_impl(
+        _j(q, jq), _j(k, jq), _j(v, jnp.bfloat16), interpret=True)
+    ref = jax_attn.attend_ref(_j(q, jq), _j(k, jq), _j(v, jnp.bfloat16))
+    assert got.dtype == torch.bfloat16
+    assert pallas.dtype == jnp.bfloat16 and ref.dtype == jnp.bfloat16
+    for want in (pallas, ref):
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want).astype(np.float32),
+            rtol=2e-2, atol=2e-2)
+
+
+def test_attend_diff_gradients_match_jax(monkeypatch):
+    """Forward the wrapper, backward the plain attention gradient, against
+    jax.grad of the JAX package's attend_fused (whose VJP is the same)."""
+    monkeypatch.setattr(jax_attn, "on_tpu_default_device", lambda: False)
+    q, k, v = _qkv((2, 16, 40, 16), 3)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jax_attn.attend_fused(q_, k_, v_) ** 2)
+
+    want = jax.grad(loss, (0, 1, 2))(_j(q), _j(k), _j(v))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    out = attend_diff(tq, tk, tv)
+    assert out.grad_fn is not None
+    out.pow(2).sum().backward()
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_attend_diff_skips_gradients_not_needed():
+    q, k, v = (_t(a) for a in _qkv((1, 8, 12, 8), 4))
+    k.requires_grad_()
+    out = AttendFused.apply(q, k, v)
+    (dk,) = torch.autograd.grad(out.sum(), [k])
+    with torch.enable_grad():
+        k2 = k.detach().requires_grad_()
+        (want,) = torch.autograd.grad(attend_ref(q, k2, v).sum(), [k2])
+    torch.testing.assert_close(dk, want, rtol=1e-6, atol=1e-6)
+
+
+def test_raw_wrapper_refuses_inputs_that_require_grad():
+    q, k, v = (_t(a) for a in _qkv((1, 8, 12, 8), 5))
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="attend_diff"):
+        attend(q, k, v)
+    with torch.no_grad():  # a serving forward may hold parameters
+        assert attend(q, k, v).shape == (1, 8, 8)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (_t(a) for a in _qkv((1, 8, 12, 8), 6))
+    with pytest.raises(ValueError):
+        attend(q[:, :, :6], k[:, :, :6], v[:, :, :6])      # dh % 4
+    with pytest.raises(ValueError):
+        attend(q.transpose(0, 1), k, v)                    # not contiguous
+    with pytest.raises(TypeError):
+        attend(q.double(), k.double(), v.double())         # float64
+    with pytest.raises(TypeError):
+        attend(q.bfloat16(), k.bfloat16(), v)              # bf16 q/k, f32 v
+    with pytest.raises(TypeError):
+        attend(q, k.bfloat16(), v)                         # q and k differ
+    with pytest.raises(ValueError):
+        attend(q, k, v[:, :5])                             # v's Lk
+    with pytest.raises(ValueError, match="unsupported device"):
+        attend(*(torch.zeros(s, device="meta")
+                 for s in ((1, 8, 8), (1, 12, 8), (1, 12, 8))))
+
+
+def test_router_covers_the_tpu_router():
+    """Every shape the JAX package sends to its kernel, the port sends to
+    K9; the joint-token read stays on the library path in both."""
+    for lq in (8, 24, 128, 1024):
+        for lk in (8, 129, 152, 1048, 4096):
+            for dh in (8, 16, 24, 32, 64, 128, 256):
+                if jax_attn.attend_fused_supported((8, lq, dh), (8, lk, dh)):
+                    assert attend_routed((8, lq, dh), (8, lk, dh))
+    assert attend_routed((8, 100, 32), (8, 1048, 32))   # no Lq % 8 limit
+    assert attend_routed((8, 64, 20), (8, 512, 20))     # dh % 4 is enough
+    assert not attend_routed((8, 24, 32), (8, 131096, 32))   # joint read
+    assert attend_supported((8, 24, 32), (8, 131096, 32))
+    assert not attend_supported((8, 64, 30), (8, 512, 30))
+    assert not attend_supported((8, 64, 260), (8, 512, 260))
+
+
+def test_kernel_is_registered():
+    wrapper, plain, source, replaces = KERNELS["attend"]
+    assert wrapper is attend and plain is attend_ref
+    assert source == "hiddenpose_tpu_torch/csrc/attn.cu"
+    assert replaces == "hiddenpose_tpu/ops/pallas/attn_vmem.py:101"

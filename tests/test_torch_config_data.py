@@ -30,6 +30,18 @@ def test_model_config_matches_jax(preset):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 
+def test_model_config_has_the_transformer_fields():
+    """The fields ``sformer_from_config`` reads are in the port's copy (the
+    test above then holds each equal to the JAX package's)."""
+    names = {f.name for f in dataclasses.fields(config.ModelConfig)}
+    assert {"patch_size", "patch_feature_dim", "depth", "heads", "dim_head",
+            "rotary_emb", "out_dim", "num_frames", "compute_dtype",
+            "num_joints", "in_channels", "image_size"} <= names
+    m = config.t128_config().model
+    assert (m.patch_feature_dim, m.depth, m.heads, m.dim_head, m.patch_size,
+            m.out_dim, m.compute_dtype) == (256, 8, 8, 32, 4, 512, "float32")
+
+
 @pytest.mark.parametrize("seed,size", [(0, 16), (1, 16), (2, 32)])
 def test_make_sample_matches_jax(seed, size):
     m = config.default_config().tiny(size).model

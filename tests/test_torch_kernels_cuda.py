@@ -301,3 +301,189 @@ def test_train_step_on_the_gpu_reaches_every_weight(dev):
     assert counts["stem_conv_raw"] == 0
     missing = [n for n, p in model.named_parameters() if p.grad is None]
     assert not missing, missing
+
+
+# -- K9: the fused grouped attention --------------------------------------
+
+# the ragged shapes of tests/test_attn_vmem.py, the TimeSformer's grouping
+# (many groups, Lk = f + 1), and head dims through every template variant
+ATTEND_SHAPES = [(3, 64, 80, 32), (2, 256, 131, 32), (1, 128, 1048, 32),
+                 (2, 24, 640, 64), (512, 16, 17, 64), (2, 33, 70, 8),
+                 (2, 33, 70, 16), (2, 33, 70, 24), (1, 50, 90, 128),
+                 (1, 50, 90, 256), (1, 7, 5, 4)]
+
+
+def _qkv(rng, shape, dev, q_scale=None):
+    b, lq, lk, dh = shape
+    q = _t(rng, (b, lq, dh), dev, dh ** -0.5 if q_scale is None else q_scale)
+    return q, _t(rng, (b, lk, dh), dev), _t(rng, (b, lk, dh), dev)
+
+
+@pytest.mark.parametrize("shape", ATTEND_SHAPES)
+def test_attend_f32(dev, shape):
+    """f32 FMA in the kernel, f32 bmm (TF32 off) in the plain version: they
+    differ in summation order and in the online softmax's rescaling."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(np.random.RandomState(11), shape, dev)
+    got = _counted(K.attend, lambda: K.attend(q, k, v))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, K.attend_ref(q, k, v), rtol=1e-5,
+                               atol=2e-6)
+
+
+def test_attend_extreme_logits(dev):
+    q, k, v = _qkv(np.random.RandomState(12), (1, 8, 136, 8), dev, 50.0)
+    got = K.attend(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, K.attend_ref(q, k, v), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("qk_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 200, 32), (2, 24, 640, 64)])
+def test_attend_bf16_v(dev, shape, qk_dtype):
+    q, k, v = _qkv(np.random.RandomState(13), shape, dev)
+    q, k, v = q.to(qk_dtype), k.to(qk_dtype), v.bfloat16()
+    got = K.attend(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    # both round the output to bf16: one ulp, at most 2^-7 of the value;
+    # near zero the differently rounded probabilities weigh more (~2e-4)
+    torch.testing.assert_close(got.float(), K.attend_ref(q, k, v).float(),
+                               rtol=2.0 ** -7, atol=1e-3)
+
+
+def test_attend_function_keeps_the_graph(dev):
+    q, k, v = (t.requires_grad_() for t in _qkv(
+        np.random.RandomState(14), (2, 16, 40, 16), dev))
+    g = _t(np.random.RandomState(15), (2, 16, 16), dev)
+    n = K.attend.launches
+    out, got = _grads(K.attend_diff, [q, k, v], g)
+    assert K.attend.launches == n + 1
+    want_out, want = _grads(K.attend_ref, [q, k, v], g)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=2e-6)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    with pytest.raises(RuntimeError, match="attend_diff"):
+        K.attend(q, k, v)
+
+
+def test_sformer_on_the_gpu_runs_the_kernel(dev):
+    """A tiny Sformer on the GPU: the grouped attention launches K9 once a
+    layer (the joint read too at this size), kernels and plain agree."""
+    from hiddenpose_tpu_torch.models.sformer import NlosPoseSformer
+    from hiddenpose_tpu_torch.utils.peaked import (
+        peaked_transformer_state_dict,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = NlosPoseSformer(dim=32, num_frames=2, num_joints=4, image_size=16,
+                            patch_size=4, depth=2, heads=2, dim_head=8,
+                            out_dim=32).eval()
+    model.load_state_dict(peaked_transformer_state_dict(model, 1))
+    model.to(dev)
+    video = torch.rand((2, 2, 1, 16, 16), device=dev)
+    n = K.attend.launches
+    with torch.no_grad():
+        got = model(video)
+        assert K.attend.launches == n + 4
+        model.set_use_kernels(False)
+        want = model(video)
+        assert K.attend.launches == n + 4
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _time_attention_models():
+    from hiddenpose_tpu_torch.models.sformer import NlosPoseSformer
+    from hiddenpose_tpu_torch.models.timesformer import TimeSformer
+
+    sformer = dict(dim=32, num_frames=3, num_joints=4, image_size=16,
+                   patch_size=4, depth=2, heads=2, dim_head=8, out_dim=32)
+    timesformer = dict(dim=32, num_frames=3, num_classes=72, image_size=16,
+                       patch_size=4, channels=1, depth=2, heads=2, dim_head=8)
+    # (id, class, kwargs, K9 launches a forward: per layer the grouped
+    # attention and, at this size, the summary tokens' read, for each of
+    # the time and the space attention)
+    return [
+        ("sformer-time", NlosPoseSformer,
+         dict(sformer, use_time_attn=True), 8),
+        ("sformer-time-pos_emb", NlosPoseSformer,
+         dict(sformer, use_time_attn=True, rotary_emb=False), 8),
+        ("timesformer", TimeSformer, timesformer, 8),
+        ("timesformer-shift-pos_emb", TimeSformer,
+         dict(timesformer, shift_tokens=True, rotary_emb=False), 8),
+    ]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _time_attention_models(),
+                         ids=lambda c: c[0])
+def test_time_attention_models_on_the_gpu(dev, case, dtype):
+    """The ``over='time'`` grouping (transposed, non-contiguous views into
+    K9) and the ``pos_emb`` variant, whose patch q and k stay bf16 in the
+    bfloat16 mode: tiny models on the GPU, kernels against plain."""
+    from hiddenpose_tpu_torch.utils.peaked import (
+        peaked_transformer_state_dict,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, cls, kw, launches = case
+    model = cls(**kw, dtype=dtype).eval()
+    model.load_state_dict(peaked_transformer_state_dict(model, 1))
+    model.to(dev)
+    video = torch.rand((2, 3, 1, 16, 16), device=dev)
+    n = K.attend.launches
+    with torch.no_grad():
+        got = model(video)
+        assert K.attend.launches == n + launches
+        model.set_use_kernels(False)
+        want = model(video)
+        assert K.attend.launches == n + launches
+    assert torch.isfinite(got.float()).all()
+    # f32: summation order only.  bf16: a one-ulp difference of K9's
+    # output, carried through two layers of bf16 Dense.
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * scale)
+
+
+# -- the stem probes ------------------------------------------------------
+
+
+def test_probes(dev):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "torch_diag_stem_paired.py"
+    spec = importlib.util.spec_from_file_location("torch_diag", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before = {p: K.KERNELS[p][0].launches for p in K.PROBES}
+    results = mod.run_probes(dev)
+    assert [r["ok"] for r in results] == [True] * 4, results
+    after = {p: K.KERNELS[p][0].launches for p in K.PROBES}
+    assert [after[p] - before[p] for p in K.PROBES] == [1, 1, 2]
+
+
+@pytest.mark.parametrize("shape", [(70, 36), (33, 2), (512, 128)])
+def test_probe_slice_transpose_ragged(dev, shape):
+    x = _t(np.random.RandomState(16), shape, dev)
+    lo, hi = K.probe_slice_transpose(x)
+    wlo, whi = K.probe_slice_transpose_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(lo, wlo) and torch.equal(hi, whi)
+
+
+@pytest.mark.parametrize("mkn", [(70, 50, 64), (5, 3, 2), (128, 96, 130)])
+def test_probe_dot_ragged(dev, mkn):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = mkn
+    rng = np.random.RandomState(17)
+    a, b = _t(rng, (m, k), dev), _t(rng, (k, n), dev)
+    got = K.probe_dot_f32(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, K.probe_dot_f32_ref(a, b), rtol=1e-5,
+                               atol=1e-5)

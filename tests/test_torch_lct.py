@@ -36,7 +36,7 @@ def _meas(b=2, seed=410):
 
 def _port(meas, mode, material, **kw):
     params = port_lct.make_lct_params(N, T, BIN_LEN, mode=mode,
-                                      material=material)
+                                      material=material, device="cpu")
     return port_lct.lct_apply(torch.from_numpy(meas), params, **kw).numpy()
 
 

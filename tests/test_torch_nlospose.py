@@ -68,7 +68,7 @@ def _flat(tree):
 
 
 def _port(size, tree):
-    model, lct = build_nlospose(Config().tiny(size).model)
+    model, lct = build_nlospose(Config().tiny(size).model, device="cpu")
     model.load_state_dict(state_dict_from_jax(tree), strict=True)
     return model, lct
 
@@ -96,7 +96,7 @@ def test_port_init_has_the_jax_structure():
     """The port's own random init converts strictly into a tree of the
     JAX model's exact paths and shapes."""
     _, _, shapes = _jax_model(16)
-    model, _ = build_nlospose(Config().tiny(16).model, seed=3)
+    model, _ = build_nlospose(Config().tiny(16).model, device="cpu", seed=3)
     got = convert_state_dict(
         {k: v.numpy() for k, v in model.state_dict().items()}, strict=True)
     flat_shapes = {jax.tree_util.keystr(p): tuple(v.shape) for p, v in
@@ -110,9 +110,9 @@ def test_port_init_has_the_jax_structure():
 
 def test_port_init_is_seeded():
     cfg = Config().tiny(16).model
-    a = build_nlospose(cfg, seed=5)[0].state_dict()
-    b = build_nlospose(cfg, seed=5)[0].state_dict()
-    c = build_nlospose(cfg, seed=6)[0].state_dict()
+    a = build_nlospose(cfg, device="cpu", seed=5)[0].state_dict()
+    b = build_nlospose(cfg, device="cpu", seed=5)[0].state_dict()
+    c = build_nlospose(cfg, device="cpu", seed=6)[0].state_dict()
     w = "pose_net.layer1.0.conv2.weight"
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a[w], c[w])
@@ -175,4 +175,4 @@ def test_unsupported_backbone_raises():
 
     cfg = dataclasses.replace(Config().tiny(16).model, backbone="posenet2d")
     with pytest.raises(NotImplementedError):
-        build_nlospose(cfg)
+        build_nlospose(cfg, device="cpu")

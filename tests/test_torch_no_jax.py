@@ -1,5 +1,5 @@
 """The port runs where there is no JAX: importing ``hiddenpose_tpu_torch``
-and every module of its inference path and train step, in a fresh interpreter, leaves
+and every module of its ported paths, in a fresh interpreter, leaves
 ``jax``, ``flax`` and the JAX package ``hiddenpose_tpu`` out of
 ``sys.modules``; and ``chip_smoke.py`` refuses to run (non-zero exit, no
 result line) on a host without a GPU."""
@@ -25,11 +25,16 @@ MODULES = [
     "hiddenpose_tpu_torch.ops.softargmax",
     "hiddenpose_tpu_torch.ops.kernels",
     "hiddenpose_tpu_torch.ops.kernels.pool2p",
+    "hiddenpose_tpu_torch.ops.kernels.attn",
+    "hiddenpose_tpu_torch.ops.kernels.probes",
     "hiddenpose_tpu_torch.losses",
     "hiddenpose_tpu_torch.models.blocks",
     "hiddenpose_tpu_torch.models.unet3d",
     "hiddenpose_tpu_torch.models.posenet3d",
     "hiddenpose_tpu_torch.models.nlospose",
+    "hiddenpose_tpu_torch.models.rotary",
+    "hiddenpose_tpu_torch.models.sformer",
+    "hiddenpose_tpu_torch.models.timesformer",
     "hiddenpose_tpu_torch.train.optim",
     "hiddenpose_tpu_torch.train.state",
     "hiddenpose_tpu_torch.train.step",
@@ -62,7 +67,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("where", ["hiddenpose_tpu_torch", "chip_smoke.py",
-                                   "scripts/torch_stage_profile.py"])
+                                   "scripts/torch_stage_profile.py",
+                                   "scripts/torch_diag_stem_paired.py"])
 def test_no_import_statement_names_jax(where):
     """Also the imports inside functions, which a module import does not
     run: none names jax, flax or the JAX package."""
@@ -93,3 +99,15 @@ def test_chip_smoke_fails_without_gpu():
     # no result: neither the kernels' JSON line nor the final ok line
     assert not any(line.lstrip().startswith("{")
                    for line in out.stdout.splitlines()), out.stdout
+
+
+def test_probe_script_fails_without_gpu():
+    """Unlike the TPU script it ports, the probe script exits non-zero when
+    it cannot run."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the script would run for real")
+    out = subprocess.run(
+        [sys.executable, "scripts/torch_diag_stem_paired.py"], cwd=ROOT,
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "diag done" not in out.stdout

@@ -56,7 +56,7 @@ def _spread(joints):
 @pytest.fixture(scope="module")
 def server():
     srv = InferenceServer(CFG, state_dict_from_jax(_jax_variables()),
-                          batch_size=4, max_wait_ms=20.0)
+                          batch_size=4, max_wait_ms=20.0, device="cpu")
     yield srv
     srv.close()
 
@@ -110,7 +110,8 @@ def test_input_validation(server):
 
 
 def test_close_drains_and_rejects():
-    srv = InferenceServer(CFG, batch_size=2, max_wait_ms=1.0, rng_seed=7)
+    srv = InferenceServer(CFG, batch_size=2, max_wait_ms=1.0, rng_seed=7,
+                          device="cpu")
     futs = [srv.submit(_meas(300 + i)) for i in range(3)]
     srv.close()
     for f in futs:
@@ -122,7 +123,7 @@ def test_close_drains_and_rejects():
 
 def test_only_float32_is_ported():
     with pytest.raises(NotImplementedError):
-        InferenceServer(CFG, batch_size=2, dtype="bfloat16")
+        InferenceServer(CFG, batch_size=2, dtype="bfloat16", device="cpu")
 
 
 def test_matches_jax_server_on_bridged_weights():
@@ -133,7 +134,7 @@ def test_matches_jax_server_on_bridged_weights():
     jsrv = JaxServer(CFG, variables, batch_size=2, dtype="float32",
                      max_wait_ms=1.0)
     psrv = InferenceServer(CFG, state_dict_from_jax(variables), batch_size=2,
-                           max_wait_ms=1.0)
+                           max_wait_ms=1.0, device="cpu")
     try:
         want = [f.result(timeout=300)["joints"]
                 for f in [jsrv.submit(m) for m in meas]]

@@ -334,6 +334,15 @@ def _raw_calls():
             torch.zeros((1, 4, 4, 4, 1)),
             torch.zeros((7, 7, 7, 1, 64), requires_grad=True),
             torch.ones(64), torch.zeros(64)),
+        "attend": lambda: K.attend(
+            torch.zeros((1, 4, 8), requires_grad=True),
+            torch.zeros((1, 6, 8)), torch.zeros((1, 6, 8))),
+        "probe_im2col": lambda: K.probe_im2col(
+            torch.zeros((8, 8, 8, 128), requires_grad=True)),
+        "probe_slice_transpose": lambda: K.probe_slice_transpose(
+            torch.zeros((4, 4), requires_grad=True)),
+        "probe_dot_f32": lambda: K.probe_dot_f32(
+            torch.zeros((4, 4)), torch.zeros((4, 4), requires_grad=True)),
     }
 
 
@@ -352,8 +361,12 @@ def test_raw_wrappers_refuse_inputs_that_require_grad(name):
 
 
 def test_every_kernel_is_listed():
-    assert set(K.KERNELS) == set(K.SERVING) | set(K.TRAINING)
+    assert set(K.KERNELS) == (set(K.SERVING) | set(K.TRAINING)
+                              | set(K.SFORMER) | set(K.PROBES))
+    assert set(K.KERNELS) == set(_raw_calls())
     for name, (wrapper, ref, source, replaces) in K.KERNELS.items():
         assert wrapper.launches >= 0 and callable(ref), name
         assert source.startswith("hiddenpose_tpu_torch/csrc/"), name
-        assert replaces.startswith("hiddenpose_tpu/ops/pallas/"), name
+        assert replaces.startswith(
+            "scripts/tpu_diag_stem_paired.py:" if name in K.PROBES
+            else "hiddenpose_tpu/ops/pallas/"), name

@@ -97,7 +97,7 @@ def _batch(size):
 
 
 def _port(size, tree=None, train=True):
-    model, lct = build_nlospose(_model_cfg(size))
+    model, lct = build_nlospose(_model_cfg(size), device="cpu")
     model.load_state_dict(state_dict_from_jax(tree or _jax_tree(size)))
     return model.train(train), lct
 
