@@ -12,7 +12,10 @@ lines:
    process per source, all at once;
 3. kernels vs plain: each kernel against its plain PyTorch version at the
    t128 batch-2 shapes of the inference path and of the train step
-   (TF32 off), error and time;
+   (TF32 off), error and time; K4 and K4-dx (three TF32 passes on the
+   tensor cores) also against a float64 conv of the same inputs, where the
+   kernel's error may be at most twice the plain f32 version's, and at a
+   ragged shape the serving path never gives them;
 4. serve: ``InferenceServer(t128_config(), batch_size=2, dtype="float32",
    device="cuda:0")`` answers 9 synthetic captures (a padded tail batch),
    with every serving kernel's launch count as expected afterwards, and a
@@ -36,7 +39,9 @@ lines:
    tables; kernels and plain versions on the same weights must agree; ms
    per capture and peak memory of each; then the bfloat16 mode's ms, peak
    memory and distance from the float32 logits;
-8. probes: the four stem probes of ``scripts/torch_diag_stem_paired.py``.
+8. probes: the four stem probes of ``scripts/torch_diag_stem_paired.py``;
+   the dot probe's launch is also timed alone, into a preallocated output,
+   beside ``torch.matmul`` into one.
 
 Phase 3 also times, beside each kernel, the one PyTorch call that computes
 the same function where there is one (``library_ms``: a yardstick, used
@@ -75,15 +80,21 @@ B = 2  # the serving batch
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at the full
 # 700 W limit): device memory bytes/s, and FLOP/s by operand type.  f32
-# means fp32 FMA outside the tensor cores: the port's f32 kernels never
-# use TF32.
+# means fp32 FMA outside the tensor cores; tf32 the tensor cores' rate, at
+# which K4 and K4-dx run every product three times (3xTF32, never one
+# pass).  The port's other f32 kernels never use TF32.
 BANDWIDTH = 3.35e12
-PEAK = {"f32": 67e12, "bf16": 989e12}
+PEAK = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 
 # Tolerances, kernel vs plain, both f32 with TF32 off: they differ only in
 # summation order, a few ulps of the output scale.  Max-pool selects
 # values and must match exactly.
 CONV_TOL = 1e-4     # max |kernel - plain| / max |plain|
+# K4 and K4-dx against a float64 conv of the same inputs: the kernel's max
+# error may be at most this many times the plain f32 version's (cuDNN,
+# TF32 off), both read in the same call.  One-pass TF32 would read about
+# 100 times, a dropped cross term about 10.
+F64_ERR_FACTOR = 2.0
 E2E_HM_TOL = 1e-4   # heatmaps, max |kernel - plain| / max |plain|
 # Joints, max abs error in heatmap voxels.  The kernels sum in another
 # order than cuDNN: the heatmaps differ by a few 1e-6 of their peak, and
@@ -218,13 +229,16 @@ def nbytes(*tensors):
 
 
 def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
-            rtol_atol=None, library_fn=None, moved=0, ops=(), tag="3 kernels"):
+            rtol_atol=None, library_fn=None, moved=0, ops=(), tag="3 kernels",
+            f64_fn=None):
     """Error and times (plain, kernel, kernel, plain) of one call shape.
     The kernel's result must be exact (``exact``), within ``atol``, within
     ``rtol_atol`` element by element, or within CONV_TOL of the plain
     result's max; a tuple result (dk, db) is compared part by part.
     ``library_fn`` is the one PyTorch call for the same function, timed
-    only; ``moved`` (bytes) and ``ops`` give the bound."""
+    only; ``moved`` (bytes) and ``ops`` give the bound.  ``f64_fn`` gives
+    the same function in float64: the kernel's max error against it may be
+    at most F64_ERR_FACTOR times the plain version's."""
     with deterministic(warn_only=True):
         got = kernel_fn()
         want = plain_fn()
@@ -247,6 +261,13 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
         ok = finite and all(
             (g - w).abs().max().item() <= CONV_TOL * max(
                 w.abs().max().item(), 1e-30) for g, w in pairs)
+    err64 = None
+    if f64_fn is not None:
+        want64 = f64_fn()
+        err64 = tuple((t.double() - want64).abs().max().item()
+                      for t in (got, want))
+        del want64
+        ok = ok and err64[0] <= F64_ERR_FACTOR * err64[1]
     p1 = cuda_ms(plain_fn, iters)
     k1 = cuda_ms(kernel_fn, iters)
     k2 = cuda_ms(kernel_fn, iters)
@@ -260,6 +281,11 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
         f"kernel {res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms library "
         f"{'none' if lib is None else format(lib, '.4f') + ' ms'} bound "
         f"{bound_ms:.4f} ms ({bound_by})")
+    if err64 is not None:
+        res.update(err_vs_f64=err64[0], plain_err_vs_f64=err64[1])
+        log(f"[{tag}] {name}: max abs err against float64: kernel "
+            f"{err64[0]:.3e}, plain f32 {err64[1]:.3e} (limit "
+            f"{F64_ERR_FACTOR:g} x plain)")
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with plain version")
     return res
@@ -296,6 +322,9 @@ K1_SHAPES = [
 # K4 call shapes: (width, extent, stride-1 blocks per forward); in a train
 # step each block also runs K4-dx once.
 K4_SHAPES = [(64, 64, 3), (128, 32, 3), (256, 16, 5)]
+# K4 and K4-dx off the path: one capture, extents that no tile divides
+# (width, (D, H, W)), with and without the epilogue.
+K4_RAGGED = [(64, (5, 6, 7)), (128, (5, 6, 7))]
 # K8: the UNet's four pools, (channels, extent of the pool's input).
 POOL2_SHAPES = [(4, 128), (8, 64), (16, 32), (32, 16)]
 # Launches of each kernel in one t128 train step, by the shapes above.
@@ -315,6 +344,7 @@ def phase_kernels(dev):
     from torch.nn.grad import conv3d_input, conv3d_weight
 
     from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.ops.kernels import conv3mxu as k4
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -424,31 +454,59 @@ def phase_kernels(dev):
         rows["max_pool2_bwd"].append(row)
         del xg, pooled_graph
 
-    for c, n, count in K4_SHAPES:
-        x = randn(B, n, n, n, c)
+    def conv64(x, k, scale=None, shift=None, relu=False):
+        """K4's function in float64, NDHWC in and out."""
+        y = F.conv3d(x.double().permute(0, 4, 1, 2, 3),
+                     k.double().permute(4, 3, 0, 1, 2),
+                     padding=1).permute(0, 2, 3, 4, 1)
+        if scale is not None:
+            y = y * scale.double() + shift.double()
+        return y.clamp_min(0.0) if relu else y
+
+    cases = [(c, (B, n, n, n), count, (True,)) for c, n, count in K4_SHAPES]
+    cases += [(c, (1, *dhw), 0, (True, False)) for c, dhw in K4_RAGGED]
+    for c, vol, count, epilogues in cases:
+        x = randn(*vol, c)
         k = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
         sc = torch.rand(c, generator=g, device=dev) + 0.5
         sh = randn(c, scale=0.1)
         x_ncdhw = x.permute(0, 4, 1, 2, 3)  # channels-last view
         w = k.permute(4, 3, 0, 1, 2).contiguous(
             memory_format=torch.channels_last_3d)
-        flop = [(2 * 27 * c * c * B * n ** 3, "f32")]
-        row = compare(f"conv3_mxu c{c}@{n}^3 +bn+relu",
-                      lambda: K.conv3_mxu(x, k, sc, sh, relu=True),
-                      lambda: K.conv3_mxu_ref(x, k, sc, sh, relu=True),
-                      iters=5,
-                      library_fn=lambda: F.conv3d(x_ncdhw, w, padding=1),
-                      moved=nbytes(x, k, sc, sh, x), ops=flop)
-        row["per_forward"] = row["per_step"] = count
-        rows["conv3_mxu"].append(row)
-        row = compare(f"conv3_mxu_dx c{c}@{n}^3",
+        at = f"c{c}@{'x'.join(map(str, vol[1:]))} b{vol[0]}"
+        # three TF32 passes of the conv's FLOP; the fp32 FMA bound beside it
+        flop = 2 * 27 * c * c * x.numel() // c
+        ops = [(3 * flop, "tf32")]
+        fma_ms = flop / PEAK["f32"] * 1e3
+        # the weight operand: the preparation kernel against its plain
+        # version, bit for bit
+        for transposed in (False, True):
+            if not torch.equal(k4.prepare_weights(k, transposed),
+                               k4.prepare_weights_ref(k, transposed)):
+                raise RuntimeError(f"{at}: prepared weights differ from the "
+                                   f"plain version (transposed={transposed})")
+        for epi in epilogues:
+            e = dict(scale=sc, shift=sh, relu=True) if epi else {}
+            row = compare(f"conv3_mxu {at}{' +bn+relu' if epi else ''}",
+                          lambda: K.conv3_mxu(x, k, **e),
+                          lambda: K.conv3_mxu_ref(x, k, **e), iters=5,
+                          library_fn=lambda: F.conv3d(x_ncdhw, w, padding=1),
+                          moved=nbytes(x, k, sc, sh, x), ops=ops,
+                          f64_fn=lambda: conv64(x, k, **e))
+            row.update(per_forward=count, per_step=count,
+                       bound_fma_ms=fma_ms)
+            rows["conv3_mxu"].append(row)
+        row = compare(f"conv3_mxu_dx {at}",
                       lambda: K.conv3_mxu_dx(x, k),
                       lambda: K.conv3_mxu_dx_ref(x, k), iters=5,
                       library_fn=lambda: conv3d_input(
                           x_ncdhw.shape, w, x_ncdhw, padding=1),
-                      moved=nbytes(x, k, x), ops=flop)
-        row["per_step"] = count
+                      moved=nbytes(x, k, x), ops=ops,
+                      f64_fn=lambda: conv64(x, k4.flip_swap(k)))
+        row.update(per_step=count, bound_fma_ms=fma_ms)
         rows["conv3_mxu_dx"].append(row)
+        log(f"[3 kernels] conv3_mxu and conv3_mxu_dx {at}: prepared weights "
+            f"equal the plain version's; fp32 FMA bound {fma_ms:.4f} ms")
     del x, x_ncdhw
 
     # K9.  (B, Lq, Lk, dh), q/k dtype, v dtype, calls per Sformer forward:
@@ -976,6 +1034,7 @@ def phase_probes(dev):
     import torch_diag_stem_paired as diag
 
     from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.ops.kernels import _build
 
     K.reset_launch_counts()
     results = diag.run_probes(dev)
@@ -1018,6 +1077,18 @@ def phase_probes(dev):
                       moved=nbytes(a, b) + 4 * m * n,
                       ops=[(2 * m * kk * n, "f32")], tag="8 probes")
         row["per_run"] = 1
+        # the launch alone, into a preallocated output, beside the library
+        # call into one: what the wrapper's checks and torch.empty add
+        out = torch.empty((m, n), device=dev)
+        row["launch_ms"] = cuda_ms(lambda: _build.launch(
+            "hp_probe_dot_f32", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            m, kk, n), iters=200)
+        row["library_out_ms"] = cuda_ms(lambda: torch.matmul(a, b, out=out),
+                                        iters=200)
+        log(f"[8 probes] probe_dot_f32 ({m},{kk})@({kk},{n}): launch alone "
+            f"{row['launch_ms']:.4f} ms, through the wrapper {row['ms']:.4f} "
+            f"ms; torch.matmul(out=) {row['library_out_ms']:.4f} ms, "
+            f"allocating {row['library_ms']:.4f} ms")
         rows["probe_dot_f32"].append(row)
     return rows, counts, results
 
@@ -1092,6 +1163,11 @@ def main() -> int:
                       else "operations"),
             library_ms=(total("library_ms") if all(
                 x["library_ms"] is not None for x in on_path) else None)))
+        if "bound_fma_ms" in on_path[0]:  # K4, K4-dx: the fp32 FMA bound
+            kernels[-1].update(
+                bound_fma_ms=total("bound_fma_ms"),
+                err_vs_f64=max(x["err_vs_f64"] for x in on_path),
+                plain_err_vs_f64=max(x["plain_err_vs_f64"] for x in on_path))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(

@@ -9,8 +9,9 @@ mode off) fuses what it can:
   ``ops/kernels/phase_pool.py``), both NDHWC; no space-to-depth;
 * Bottlenecks [3, 4, 6, 3] use torch's k//2 padding; the conv2 of every
   stride-1 block of width 64, 128 or 256 runs the K4 kernel
-  (``ops/kernels/conv3mxu.py``) with bn2 and the ReLU fused; the other
-  convs, the deconvs and the norms are ``torch.nn.functional`` calls;
+  (``ops/kernels/conv3mxu.py``: f32 in and out, the products in three TF32
+  passes on the tensor cores, never one) with bn2 and the ReLU fused; the
+  other convs, the deconvs and the norms are ``torch.nn.functional`` calls;
 * the network runs in ``torch.channels_last_3d``, so K2's output, K3, K4
   and the library convs all see NDHWC memory with no transposes between.
 

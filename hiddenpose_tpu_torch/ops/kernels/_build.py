@@ -44,6 +44,7 @@ SIGNATURES = {
     "hp_conv3p_fwd": [_P] * 7 + [_I] * 9 + [_P],
     "hp_stem_conv_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "hp_maxpool3d_k3s2p1": [_P] * 2 + [_I] * 8 + [_P],
+    "hp_conv3_mxu_prep": [_P] * 2 + [_I] * 3 + [_P],
     "hp_conv3_mxu_fwd": [_P] * 5 + [_I] * 7 + [_P],
     "hp_conv3p_adjoint": [_P] * 3 + [_I] * 7 + [_P],
     "hp_conv3p_wgrad": [_P] * 5 + [_I] * 8 + [_P],

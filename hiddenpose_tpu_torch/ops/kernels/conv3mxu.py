@@ -4,10 +4,21 @@ Replaces ``hiddenpose_tpu/ops/pallas/conv3mxu.py::conv3_mxu`` (body
 ``_conv3mxu_kernel``): the Bottleneck conv2 of the stride-1 c64 @64^3,
 c128 @32^3 and c256 @16^3 blocks, with the eval BatchNorm affine and the
 ReLU as an epilogue.  Same argument order and NDHWC / DHWIO layouts as the
-JAX function; the arithmetic is full f32 (the JAX path's
-``compute_dtype='f32'``): fp32 FMA, no TF32.  The CUDA source is
-``csrc/conv3mxu.cu``; its header says what bounds it (fp32 FMA issue and
-operand reuse) and how the SIMT implicit-GEMM tiling answers that.
+JAX function.  The arithmetic is the GPU's counterpart of the JAX path's
+``compute_dtype='f32'`` (multi-pass ``precision=HIGHEST`` matmuls on the
+matrix unit): **three TF32 passes with f32 accumulation (3xTF32), never
+one**.  Each f32 operand is split into two TF32 parts, a = a_hi + a_lo
+(:func:`tf32_split`), and a * b is taken as a_lo * b_hi + a_hi * b_lo +
+a_hi * b_hi on the tensor cores; the dropped a_lo * b_lo is about 2^-22 of
+|a||b|, f32's own rounding.  :func:`conv3_mxu_3xtf32_ref` emulates that
+arithmetic in plain PyTorch; :func:`conv3_mxu_ref` stays the plain version
+everything is held against.  The CUDA source is ``csrc/conv3mxu.cu``; its
+header says what bounds it (TF32 MMA issue at three passes) and what the
+design does about it.
+
+The kernel reads the weights in the order of its B fragments:
+:func:`prepare_weights` splits them and lays them out, once per call
+(for dx with the tap flip and the in/out swap folded in).
 
 Its gradient (:class:`Conv3Mxu`, the port of ``conv3_mxu_diff`` /
 ``_conv3_bwd``, ``hiddenpose_tpu/ops/pallas/conv3mxu.py:524-589``) runs
@@ -35,16 +46,112 @@ def conv3mxu_supported(cin: int, cout: int) -> bool:
     return cin % 16 == 0 and cout % 64 == 0 and cin > 0 and cout > 0
 
 
-def conv3_mxu_ref(x, k, scale=None, shift=None, relu=False):
-    """Plain version: ``F.conv3d(pad=1)`` + affine + ReLU, NDHWC in/out."""
+def _conv_ndhwc(x, k):
     y = F.conv3d(x.float().permute(0, 4, 1, 2, 3),
                  k.float().permute(4, 3, 0, 1, 2), padding=1)
-    y = y.permute(0, 2, 3, 4, 1)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def _epilogue(y, scale, shift, relu):
     if scale is not None:
         y = y * scale + shift
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.contiguous()
+
+
+def conv3_mxu_ref(x, k, scale=None, shift=None, relu=False):
+    """Plain version: ``F.conv3d(pad=1)`` + affine + ReLU, NDHWC in/out."""
+    return _epilogue(_conv_ndhwc(x, k), scale, shift, relu)
+
+
+def tf32_round(t):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: half a TF32 ulp is added to the
+    bit pattern's magnitude and the low 13 bits are cleared.  Infinities
+    and zeros come back unchanged."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t):
+    """(hi, lo), both TF32 values held in float32, with ``hi + lo`` within
+    2^-22 relative of ``t``: ``hi = tf32(t)``, ``lo = tf32(t - hi)`` (the
+    difference is exact in float32)."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def conv3_mxu_3xtf32_ref(x, k, scale=None, shift=None, relu=False):
+    """The kernel's arithmetic in plain PyTorch: the three products of the
+    split operands as three f32 convs, the two small terms summed first,
+    then the epilogue.  ``conv3_mxu_3xtf32_ref(dz, flip_swap(k))`` is the
+    emulation of :func:`conv3_mxu_dx`."""
+    xh, xl = tf32_split(x.float())
+    kh, kl = tf32_split(k.float())
+    y = (_conv_ndhwc(xl, kh) + _conv_ndhwc(xh, kl)) + _conv_ndhwc(xh, kh)
+    return _epilogue(y, scale, shift, relu)
+
+
+def flip_swap(k):
+    """The dx weights of a SAME 3^3 conv: taps flipped, in/out swapped."""
+    return torch.flip(k, (0, 1, 2)).transpose(3, 4).contiguous()
+
+
+# The kernel's weight operand.  A k-step of the implicit GEMM is 16 input
+# channels of one tap (k-block kb = tap * C_in / 16 + channel block), run as
+# two k8 MMAs (kk = 0, 1) of a 64-wide block of output channels; each MMA
+# reads its B operand (8 k x 64 n, hi or lo) from shared memory as 2 x 8
+# "core matrices" of 4 k x 8 n, each 128 contiguous bytes (n-row r at 16 r
+# bytes, its 4 k values).  Neither index has to follow memory order, so the
+# kernel numbers them for wide accesses: k slot j of MMA kk is input channel
+# 4 (j % 4) + 2kk + j / 4 of the k-block (a lane's A values of both MMAs are
+# then one 16-byte read), and column r of n-tile ng = 2p + q is output
+# channel 16p + 4(r / 2) + 2q + r % 2 (a lane's accumulators of two n-tiles
+# are then 4 consecutive channels, one 16-byte store).  The operand holds,
+# for each (kb, 64-wide n-block), the four matrices (hi, lo) x (kk 0, 1)
+# core matrix by core matrix: a block's tile of one k-step is one
+# contiguous 8 KB run, copied as it is.
+def prepare_weights_ref(k, transposed=False):
+    """Plain version of :func:`prepare_weights`: ``k`` (3, 3, 3, C_in,
+    C_out) DHWIO, or with ``transposed`` its :func:`flip_swap`, split by
+    :func:`tf32_split` and laid out as (27 * C_in / 16, C_out / 64, 2 parts,
+    2 kk, 2 core matrices along k, 8 along n, 8 rows, 4) float32 (C_in,
+    C_out: the conv's that the kernel runs)."""
+    w = flip_swap(k) if transposed else k
+    cin, cout = w.shape[3], w.shape[4]
+    parts = torch.stack(tf32_split(w.float()))
+    # (part, tap, c16, e, kk, kc, n-block, p, r / 2, q, r % 2)
+    parts = parts.reshape(2, 27, cin // 16, 4, 2, 2, cout // 64, 4, 4, 2, 2)
+    # (tap, c16, n-block, part, kk, kc, p, q, r / 2, r % 2, e)
+    parts = parts.permute(1, 2, 6, 0, 4, 5, 7, 9, 8, 10, 3)
+    return parts.reshape(27 * cin // 16, cout // 64, 2, 2, 2, 8, 8,
+                         4).contiguous()
+
+
+def unpack_weights(wp):
+    """(hi, lo), each (3, 3, 3, C_in, C_out): the inverse of
+    :func:`prepare_weights_ref`'s layout."""
+    cin, cout = wp.shape[0] // 27 * 16, wp.shape[1] * 64
+    parts = wp.reshape(27, cin // 16, cout // 64, 2, 2, 2, 4, 2, 4, 2, 4)
+    parts = parts.permute(3, 0, 1, 10, 4, 5, 2, 6, 8, 7, 9)
+    parts = parts.reshape(2, 3, 3, 3, cin, cout)
+    return parts[0].contiguous(), parts[1].contiguous()
+
+
+def prepare_weights(k, transposed=False):
+    """The kernel's weight operand (see :func:`prepare_weights_ref`), made
+    by one small kernel of ``csrc/conv3mxu.cu`` for a CUDA tensor."""
+    if k.device.type == "cpu":
+        return prepare_weights_ref(k, transposed)
+    if k.device.type != "cuda":
+        raise ValueError(f"prepare_weights: unsupported device {k.device}")
+    cin, cout = (k.shape[4], k.shape[3]) if transposed else k.shape[3:]
+    wp = torch.empty((27 * cin // 16, cout // 64, 2, 2, 2, 8, 8, 4),
+                     device=k.device, dtype=torch.float32)
+    _build.launch("hp_conv3_mxu_prep", k.data_ptr(), wp.data_ptr(), cin, cout,
+                  int(transposed))
+    return wp
 
 
 def conv3_mxu(x, k, scale=None, shift=None, relu=False):
@@ -84,21 +191,17 @@ def conv3_mxu(x, k, scale=None, shift=None, relu=False):
 conv3_mxu.launches = 0
 
 
-def _launch(x, k, scale=None, shift=None, relu=False):
+def _launch(x, k, scale=None, shift=None, relu=False, transposed=False):
     b, d, h, w, cin = x.shape
-    cout = k.shape[4]
+    wp = prepare_weights(k, transposed)
+    cout = wp.shape[1] * 64
     out = torch.empty((b, d, h, w, cout), device=x.device,
                       dtype=torch.float32)
     _build.launch(
-        "hp_conv3_mxu_fwd", x.data_ptr(), k.data_ptr(), _build.ptr(scale),
+        "hp_conv3_mxu_fwd", x.data_ptr(), wp.data_ptr(), _build.ptr(scale),
         _build.ptr(shift), out.data_ptr(), b, d, h, w, cin, cout,
         int(bool(relu)))
     return out
-
-
-def flip_swap(k):
-    """The dx weights of a SAME 3^3 conv: taps flipped, in/out swapped."""
-    return torch.flip(k, (0, 1, 2)).transpose(3, 4).contiguous()
 
 
 def conv3_mxu_dx_ref(dz, k):
@@ -112,8 +215,8 @@ def conv3_mxu_dx_ref(dz, k):
 
 def conv3_mxu_dx(dz, k):
     """dL/dx of :func:`conv3_mxu` (no epilogue) given dz (B, D, H, W,
-    C_out): the K4 kernel on :func:`flip_swap` of k.  Returns
-    (B, D, H, W, C_in)."""
+    C_out): the K4 kernel on :func:`flip_swap` of k, which the weight
+    preparation folds in.  Returns (B, D, H, W, C_in)."""
     if dz.dim() != 5 or k.dim() != 5 or tuple(k.shape[:3]) != (3, 3, 3) \
             or k.shape[4] != dz.shape[4]:
         raise ValueError(f"dz {tuple(dz.shape)} must be (B, D, H, W, C_out) "
@@ -130,7 +233,7 @@ def conv3_mxu_dx(dz, k):
         return conv3_mxu_dx_ref(dz, k)
     if dev.type != "cuda":
         raise ValueError(f"conv3_mxu_dx: unsupported device {dev}")
-    out = _launch(dz, flip_swap(k))
+    out = _launch(dz, k, transposed=True)
     conv3_mxu_dx.launches += 1
     return out
 

@@ -5,10 +5,13 @@ joint loss + voxel loss, backward, Adam update), ``make_eval_step`` and
 ``make_forward``.  The JAX package jits each step; PyTorch runs eagerly,
 and the train step updates the :class:`TrainState` in place.
 
-Precision: only float32 at 'highest' is ported.  The four kernels of the
-forward and the four of the backward never use TF32, and for a model on a
-GPU the step turns TF32 off for cuDNN and cuBLAS (as ``build_nlospose``
-does), so the library convs and matmuls are full f32 as well.
+Precision: only float32 at 'highest' is ported.  The kernels of the
+forward and of the backward never take a single TF32 pass: all are fp32
+FMA but the Bottleneck 3^3 conv and its dx (``ops/kernels/conv3mxu.py``),
+which run each product in three TF32 passes with f32 sums, as accurate
+against float64 as an f32 conv.  For a model on a GPU the step turns TF32
+off for cuDNN and cuBLAS (as ``build_nlospose`` does), so the library
+convs and matmuls are full f32 as well.
 """
 
 from __future__ import annotations

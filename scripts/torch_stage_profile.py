@@ -44,6 +44,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (the smoke run's weights and captures)
 
 B = chip_smoke.B
+# K4's conv kernel and its weight preparation (csrc/conv3mxu.cu), printed
+# by name under the profiler: the preparation is part of every K4 call
+K4_KERNELS = ("conv3_tf32x3_kernel", "prep_kernel")
 
 
 def stage_times(model, lct, meas, batch_chunk):
@@ -215,10 +218,12 @@ def busy_seconds(events) -> float:
     return busy / 1e6  # profiler times are in microseconds
 
 
-def device_profile(tag, fn):
+def device_profile(tag, fn, also=()):
     """Run ``fn`` under torch.profiler; print and return wall time, device
     busy time, idle share, the 15 kernels with the most device time and the
-    12 (op, input shapes) pairs with the most device time of their own."""
+    12 (op, input shapes) pairs with the most device time of their own.
+    Kernels whose name holds one of ``also`` are printed whatever their
+    rank, with their launches and mean time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -240,6 +245,13 @@ def device_profile(tag, fn):
           f"{1 - busy / wall:.4f}, {len(kern)} device events", flush=True)
     for name, ms in top:
         print(f"[{tag}] {ms:10.3f} ms {100 * ms / total:6.2f}%  {name[:90]}")
+    named = {}
+    for part in also:
+        hits = [e for e in kern if part in e.name]
+        ms = sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
+        named[part] = dict(launches=len(hits), device_ms=ms)
+        print(f"[{tag}] {part}: {len(hits)} launches, {ms:.3f} ms, "
+              f"{1e3 * ms / max(len(hits), 1):.2f} us each")
     by_op = {}
     for e in prof.key_averages(group_by_input_shape=True):
         ms = e.self_device_time_total / 1e3
@@ -251,6 +263,7 @@ def device_profile(tag, fn):
               f"{name[:150]}")
     return dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall,
                 device_ms_total=total, device_ms_by_kernel=dict(top),
+                named_kernels=named,
                 device_ms_by_op_and_shapes=dict(top_ops))
 
 
@@ -296,7 +309,8 @@ def main() -> int:
     try:
         server.warmup()
         burst = device_profile("burst", lambda: [
-            f.result(timeout=600) for f in [server.submit(c) for c in caps]])
+            f.result(timeout=600) for f in [server.submit(c) for c in caps]],
+            also=K4_KERNELS)
     finally:
         server.close()
     del server
@@ -311,7 +325,8 @@ def main() -> int:
     step = make_train_step(model)
     step(state, batch, lct)  # warm-up: cuDNN's algorithm choice
     torch.cuda.synchronize()
-    train = device_profile("train", lambda: step(state, batch, lct))
+    train = device_profile("train", lambda: step(state, batch, lct),
+                           also=K4_KERNELS)
     print(smi, flush=True)
     del model, state, step, batch
     torch.cuda.empty_cache()

@@ -10,7 +10,9 @@ Shapes are small and deliberately ragged (extents that are not multiples
 of the kernels' tiles) so every masking branch runs.  Tolerance: both
 sides are float32 with TF32 off; they differ only in summation order, so
 errors are a few ulps of the output scale (1e-4 absolute and relative for
-unit-scale outputs).  The pools' gradients route values: K8 is exact, and
+unit-scale outputs).  K4 and K4-dx multiply in three TF32 passes on the
+tensor cores: they are also held against a float64 conv, where they may
+err at most twice as much as the plain f32 version.  The pools' gradients route values: K8 is exact, and
 K7 sums as the autograd of its plain chain does (powers-of-two weights,
 two-term sums), so it is held exact too.
 """
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from hiddenpose_tpu_torch.ops import kernels as K
+from hiddenpose_tpu_torch.ops.kernels import conv3mxu
 
 pytestmark = pytest.mark.cuda
 
@@ -219,6 +222,112 @@ def test_conv3_mxu_dx(dev, c, n):
     k = _t(rng, (3, 3, 3, c, c), dev, 1.0 / np.sqrt(27 * c))
     got = _counted(K.conv3_mxu_dx, lambda: K.conv3_mxu_dx(dz, k))
     _close(got, K.conv3_mxu_dx_ref(dz, k))
+
+
+def _conv64(x, k):
+    y = F.conv3d(x.double().permute(0, 4, 1, 2, 3),
+                 k.double().permute(4, 3, 0, 1, 2), padding=1)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+# the three shapes of the t128 batch-2 path, batch 1 of the first, and the
+# ragged volumes no tile divides: (B, D, H, W, C)
+K4_CASES = [(2, 64, 64, 64, 64), (2, 32, 32, 32, 128), (2, 16, 16, 16, 256),
+            (1, 64, 64, 64, 64), (1, 5, 6, 7, 64), (1, 5, 6, 7, 128)]
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("shape", K4_CASES)
+def test_conv3_mxu_3xtf32_against_both_references(dev, shape, epilogue):
+    """K4 (three TF32 passes) against its plain f32 version, against the
+    plain PyTorch emulation of its arithmetic, and against float64, where
+    it may err at most twice as much as the plain f32 version (one TF32
+    pass would err about 100 times as much)."""
+    rng = np.random.RandomState(11)
+    c = shape[4]
+    x = _t(rng, shape, dev)
+    k = _t(rng, (3, 3, 3, c, c), dev, 1.0 / np.sqrt(27 * c))
+    sc = _t(rng, (c,), dev).abs() + 0.5 if epilogue else None
+    sh = _t(rng, (c,), dev, 0.1) if epilogue else None
+    got = _counted(K.conv3_mxu,
+                   lambda: K.conv3_mxu(x, k, sc, sh, relu=epilogue))
+    torch.cuda.synchronize()
+    want = K.conv3_mxu_ref(x, k, sc, sh, relu=epilogue)
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * top
+    emu = conv3mxu.conv3_mxu_3xtf32_ref(x, k, sc, sh, relu=epilogue)
+    assert (got - emu).abs().max().item() <= 1e-5 * top
+    want64 = _conv64(x, k)
+    if epilogue:
+        want64 = torch.clamp_min(want64 * sc.double() + sh.double(), 0.0)
+    err, err_plain = ((t.double() - want64).abs().max().item()
+                      for t in (got, want))
+    assert err <= 2 * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("shape", K4_CASES)
+def test_conv3_mxu_dx_3xtf32_against_both_references(dev, shape):
+    rng = np.random.RandomState(12)
+    c = shape[4]
+    dz = _t(rng, shape, dev)
+    k = _t(rng, (3, 3, 3, c, c), dev, 1.0 / np.sqrt(27 * c))
+    got = _counted(K.conv3_mxu_dx, lambda: K.conv3_mxu_dx(dz, k))
+    torch.cuda.synchronize()
+    want = K.conv3_mxu_dx_ref(dz, k)
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * top
+    kt = conv3mxu.flip_swap(k)
+    emu = conv3mxu.conv3_mxu_3xtf32_ref(dz, kt)
+    assert (got - emu).abs().max().item() <= 1e-5 * top
+    want64 = _conv64(dz, kt)
+    err, err_plain = ((t.double() - want64).abs().max().item()
+                      for t in (got, want))
+    assert err <= 2 * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 128), (16, 64), (256, 256)])
+def test_conv3_mxu_rectangular_channels(dev, cin, cout):
+    """C_in != C_out, and C_in of one 16-deep k-slice a tap: forward, and
+    dx through the transposed weight preparation."""
+    rng = np.random.RandomState(13)
+    x = _t(rng, (1, 4, 5, 9, cin), dev)
+    k = _t(rng, (3, 3, 3, cin, cout), dev, 1.0 / np.sqrt(27 * cin))
+    want = K.conv3_mxu_ref(x, k)
+    got = K.conv3_mxu(x, k)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    if conv3mxu.conv3mxu_supported(cout, cin):
+        dz = _t(rng, (1, 4, 5, 9, cout), dev)
+        want = K.conv3_mxu_dx_ref(dz, k)
+        got = K.conv3_mxu_dx(dz, k)
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (256, 256)])
+def test_weight_preparation_kernel_is_the_plain_version(dev, cin, cout,
+                                                        transposed):
+    rng = np.random.RandomState(14)
+    k = _t(rng, (3, 3, 3, cin, cout), dev)
+    got = conv3mxu.prepare_weights(k, transposed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv3mxu.prepare_weights_ref(k, transposed))
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_conv3_mxu_function_gradients(dev, c):
+    """``Conv3Mxu``: dx through the kernel, dk through the library, both
+    against plain autograd of the plain conv."""
+    rng = np.random.RandomState(15)
+    x = _t(rng, (2, 5, 6, 7, c), dev).requires_grad_()
+    k = _t(rng, (3, 3, 3, c, c), dev, 1.0 / np.sqrt(27 * c)).requires_grad_()
+    g = _t(rng, (2, 5, 6, 7, c), dev)
+    n_fwd, n_dx = K.conv3_mxu.launches, K.conv3_mxu_dx.launches
+    out, got = _grads(K.conv3_mxu_diff, [x, k], g)
+    assert (K.conv3_mxu.launches, K.conv3_mxu_dx.launches) == (n_fwd + 1,
+                                                               n_dx + 1)
+    want_out, want = _grads(K.conv3_mxu_ref, [x, k], g)
+    for a, w in [(out, want_out), *zip(got, want)]:
+        assert (a - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
 
 def _grads(fn, inputs, g):
