@@ -15,7 +15,8 @@ lines:
    (TF32 off), error and time; K4 and K4-dx (three TF32 passes on the
    tensor cores) also against a float64 conv of the same inputs, where the
    kernel's error may be at most twice the plain f32 version's, and at a
-   ragged shape the serving path never gives them;
+   ragged shape the serving path never gives them; K9's f32 rows (three
+   TF32 passes at head dim 32) likewise against a float64 attention;
 4. serve: ``InferenceServer(t128_config(), batch_size=2, dtype="float32",
    device="cuda:0")`` answers 9 synthetic captures (a padded tail batch),
    with every serving kernel's launch count as expected afterwards, and a
@@ -34,14 +35,16 @@ lines:
 7. sformer: ``build_sformer(t128_config().model, dtype="float32")`` at full
    width (dim 256, depth 8, 8 heads of 32) answers a real-data-shaped
    (1, 128, 1, 128, 128) video a few times: the attention kernel launches
-   exactly 8 times a forward, logits and ``simdr_decode`` joints are
+   exactly 16 times a forward (the joint-token read and the grouped
+   attention of each layer), logits and ``simdr_decode`` joints are
    finite, spread across joints and videos, and depend on the rotary
    tables; kernels and plain versions on the same weights must agree; ms
    per capture and peak memory of each; then the bfloat16 mode's ms, peak
    memory and distance from the float32 logits;
 8. probes: the four stem probes of ``scripts/torch_diag_stem_paired.py``;
    the dot probe's launch is also timed alone, into a preallocated output,
-   beside ``torch.matmul`` into one.
+   beside ``torch.matmul`` into one (medians of 20 readings each, taken in
+   turns), and may take at most 1.1 times as long.
 
 Phase 3 also times, beside each kernel, the one PyTorch call that computes
 the same function where there is one (``library_ms``: a yardstick, used
@@ -71,6 +74,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -81,8 +85,8 @@ B = 2  # the serving batch
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at the full
 # 700 W limit): device memory bytes/s, and FLOP/s by operand type.  f32
 # means fp32 FMA outside the tensor cores; tf32 the tensor cores' rate, at
-# which K4 and K4-dx run every product three times (3xTF32, never one
-# pass).  The port's other f32 kernels never use TF32.
+# which K4, K4-dx and K9 at head dim 32 run every f32 product three times
+# (3xTF32, never one pass).  The port's other f32 kernels never use TF32.
 BANDWIDTH = 3.35e12
 PEAK = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 
@@ -90,10 +94,12 @@ PEAK = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # summation order, a few ulps of the output scale.  Max-pool selects
 # values and must match exactly.
 CONV_TOL = 1e-4     # max |kernel - plain| / max |plain|
-# K4 and K4-dx against a float64 conv of the same inputs: the kernel's max
-# error may be at most this many times the plain f32 version's (cuDNN,
-# TF32 off), both read in the same call.  One-pass TF32 would read about
-# 100 times, a dropped cross term about 10.
+# K4, K4-dx and K9 against a float64 version of the same inputs: the
+# kernel's max error may be at most this many times the plain f32 version's
+# (cuDNN or cuBLAS, TF32 off), both read in the same call, or one f32 ulp
+# of the largest output (2^-23 of it) where that is more: below an ulp the
+# two errors are the roundings of single outputs, and their ratio is chance.
+# One-pass TF32 would read about 100 times, a dropped cross term about 10.
 F64_ERR_FACTOR = 2.0
 E2E_HM_TOL = 1e-4   # heatmaps, max |kernel - plain| / max |plain|
 # Joints, max abs error in heatmap voxels.  The kernels sum in another
@@ -117,8 +123,8 @@ TRAIN_GRAD_L2_TOL = 0.05     # gradients, relative L2 over each module
 TRAIN_PARAM_TOL = 1e-6       # new params where the two gradients agree
 TRAIN_SIGN_AGREE = 0.99      # share of large gradient elements of one sign
 # K9, kernel vs plain, |got - want| <= atol + rtol * |want|: f32 both sides
-# (fp32 FMA vs cuBLAS f32), differing in summation order and in the online
-# softmax's rescaling.  With a bf16 v both round the output to bf16, so
+# (three TF32 passes with f32 sums, or fp32 FMA off head dim 32, vs cuBLAS
+# f32), differing in summation order and in the online softmax's rescaling.  With a bf16 v both round the output to bf16, so
 # they may differ by one bf16 ulp, at most 2^-7 of the value; the atol
 # covers outputs near zero, where the differently rounded probabilities
 # (about 1e-4 at these shapes) outweigh an ulp.  A typical output at the
@@ -126,10 +132,19 @@ TRAIN_SIGN_AGREE = 0.99      # share of large gradient elements of one sign
 ATTN_F32_TOL = (1e-5, 2e-6)
 ATTN_EXTREME_TOL = (1e-5, 1e-5)
 ATTN_BF16_TOL = (2.0 ** -7, 1e-3)
-# Phase 7, the Sformer with kernels vs with plain versions, same weights
-# and video: the logits' max error over their max, and the decoded joints
-# in bins (image units x 2).  In the bf16 mode a one-ulp difference of K9's
-# bf16 output passes through the bf16 Dense layers of up to 8 layers.  The
+# Head dim 32 with logits of a few hundred: an f32 score carries an error of
+# 3e-5 (one ulp of 400), which exp() turns into that relative error of a
+# weight, so the plain f32 version itself errs about 6e-5 against float64
+# there; the row is held to the float64 limit above all.
+ATTN_LARGE_LOGITS_TOL = (1e-4, 1e-4)
+# Phase 7, the Sformer with kernels vs a forward whose attention is taken
+# in float64, same weights and video: the logits' max error over their max
+# (the plain f32 forward is held to nothing: its joint-token read sums
+# 131 096 values a row in one f32 chain and sits 1.5e-4 from that forward,
+# so kernels vs plain may read SFORMER_TOL plus that), and the decoded
+# joints, kernels vs plain, in bins (image units x 2).  In the bf16 mode a
+# one-ulp difference of K9's bf16 output passes through the bf16 Dense
+# layers of up to 8 layers.  The
 # bf16 mode against the f32 logits differs by bf16's rounding at every
 # Dense, which the peaked weights amplify: a few times the first reading
 # (8.7e-3 of the max).
@@ -137,7 +152,10 @@ SFORMER_TOL = 1e-4
 SFORMER_JOINT_TOL = 0.05
 SFORMER_BF16_KERNELS_TOL = 1e-2
 SFORMER_BF16_TOL = 3e-2
-SFORMER_LAUNCHES_PER_FORWARD = 8   # one grouped attention per layer
+# per layer the joint-token read and the grouped attention
+SFORMER_LAUNCHES_PER_FORWARD = 16
+# Phase 8: the dot probe's launch may take this many times torch.matmul's
+PROBE_DOT_SLOWER = 1.1
 DOT_PROBE_TOL = 1e-5
 
 
@@ -223,6 +241,15 @@ def bound(nbytes, ops):
                                                            "operations")
 
 
+def attention64(q, k, v):
+    """softmax(q k^T) v in float64, 64 groups at a time."""
+    return torch.cat([
+        torch.softmax(torch.bmm(q[i:i + 64].double(),
+                                k[i:i + 64].double().transpose(1, 2)),
+                      dim=-1) @ v[i:i + 64].double()
+        for i in range(0, q.shape[0], 64)])
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -238,7 +265,8 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
     ``library_fn`` is the one PyTorch call for the same function, timed
     only; ``moved`` (bytes) and ``ops`` give the bound.  ``f64_fn`` gives
     the same function in float64: the kernel's max error against it may be
-    at most F64_ERR_FACTOR times the plain version's."""
+    at most F64_ERR_FACTOR times the plain version's (or one f32 ulp of
+    the plain result's max)."""
     with deterministic(warn_only=True):
         got = kernel_fn()
         want = plain_fn()
@@ -267,7 +295,8 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
         err64 = tuple((t.double() - want64).abs().max().item()
                       for t in (got, want))
         del want64
-        ok = ok and err64[0] <= F64_ERR_FACTOR * err64[1]
+        ok = ok and err64[0] <= max(F64_ERR_FACTOR * err64[1],
+                                    2.0 ** -23 * scale)
     p1 = cuda_ms(plain_fn, iters)
     k1 = cuda_ms(kernel_fn, iters)
     k2 = cuda_ms(kernel_fn, iters)
@@ -514,11 +543,15 @@ def phase_kernels(dev):
     # of 1024 patches + 24 joint keys; once a layer), its over="time"
     # grouping (8 heads x 1024 positions, 128 frames + 24 joint keys), the
     # ragged shapes of the JAX package's tests, the bf16 mode's
-    # combinations at the full-width shape, and the joint-token read.
+    # combinations at the full-width shape, and the joint-token read (8
+    # heads, 24 joint queries over all tokens; once a layer), which the
+    # kernel splits over the keys, in the dtypes of both modes.
     f32, bf16 = torch.float32, torch.bfloat16
     full = (8 * 128, 1024, 1048, 32)
+    joint = (8, 24, 24 + 128 * 1024, 32)
+
     for shape, qdt, vdt, per, iters, tol in [
-            (full, f32, f32, SFORMER_LAUNCHES_PER_FORWARD, 3, ATTN_F32_TOL),
+            (full, f32, f32, 8, 3, ATTN_F32_TOL),
             ((8 * 1024, 128, 152, 32), f32, f32, 0, 3, ATTN_F32_TOL),
             ((3, 64, 80, 32), f32, f32, 0, 20, ATTN_F32_TOL),
             ((2, 256, 131, 32), f32, f32, 0, 20, ATTN_F32_TOL),
@@ -526,15 +559,19 @@ def phase_kernels(dev):
             ((2, 24, 640, 64), f32, f32, 0, 20, ATTN_F32_TOL),
             (full, bf16, bf16, 0, 3, ATTN_BF16_TOL),
             (full, f32, bf16, 0, 3, ATTN_BF16_TOL),
-            # the joint-token read, which the model's router keeps on the
-            # library path (more than ROUTED_MAX_LK keys): the reading
-            # that limit rests on
-            ((8, 24, 24 + 128 * 1024, 32), f32, f32, 0, 3, ATTN_F32_TOL)]:
+            (joint, f32, f32, 8, 3, ATTN_F32_TOL),
+            (joint, bf16, bf16, 0, 3, ATTN_BF16_TOL)]:
         b, lq, lk, dh = shape
         q = (randn(b, lq, dh, scale=dh ** -0.5)).to(qdt)
         k = randn(b, lk, dh).to(qdt)
         v = randn(b, lk, dh).to(vdt)
         half = 2 * b * lq * lk * dh
+        # What the kernel's products are made of: at head dim 32 an f32
+        # operand takes three TF32 passes on the tensor cores, a bf16 one
+        # (for p v: a bf16 v) one bf16 pass; other head dims fp32 FMA.
+        ops = [(half, "bf16") if dt == bf16 else
+               (3 * half, "tf32") if dh == 32 else (half, "f32")
+               for dt in (qdt, vdt)]
         row = compare(
             f"attend {shape} q/k {qdt} v {vdt}".replace("torch.", ""),
             lambda: K.attend(q, k, v), lambda: K.attend_ref(q, k, v),
@@ -543,9 +580,14 @@ def phase_kernels(dev):
             library_fn=(lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=1.0)) if qdt == vdt else None,
             moved=nbytes(q, k, v) + b * lq * dh * v.element_size(),
-            ops=[(half, "bf16" if qdt == bf16 else "f32"),
-                 (half, "bf16" if vdt == bf16 else "f32")])
+            ops=ops,
+            f64_fn=(lambda: attention64(q, k, v)) if vdt == f32 else None)
         row["per_forward"] = per
+        if vdt == f32:
+            row["bound_fma_ms"] = 2 * half / PEAK["f32"] * 1e3
+        with deterministic(warn_only=True):  # the split sums in chunk order
+            if not torch.equal(K.attend(q, k, v), K.attend(q, k, v)):
+                raise RuntimeError(f"attend {shape}: two calls differ")
         rows["attend"].append(row)
         del q, k, v
     # logits x 50: the running max must keep exp() finite
@@ -555,7 +597,22 @@ def phase_kernels(dev):
                   iters=20, rtol_atol=ATTN_EXTREME_TOL,
                   library_fn=lambda: F.scaled_dot_product_attention(
                       q, k, v, scale=1.0),
-                  moved=nbytes(q, k, v, q), ops=[(4 * 8 * 136 * 8, "f32")])
+                  moved=nbytes(q, k, v, q), ops=[(4 * 8 * 136 * 8, "f32")],
+                  f64_fn=lambda: attention64(q, k, v))
+    row["per_forward"] = 0
+    rows["attend"].append(row)
+    # the same at head dim 32, on the tensor cores: an error in a score is
+    # multiplied by the score's size inside exp()
+    q, k, v = randn(2, 100, 32, scale=20.0), randn(2, 300, 32), \
+        randn(2, 300, 32)
+    row = compare("attend (2, 100, 300, 32) logits x 113",
+                  lambda: K.attend(q, k, v), lambda: K.attend_ref(q, k, v),
+                  iters=20, rtol_atol=ATTN_LARGE_LOGITS_TOL,
+                  library_fn=lambda: F.scaled_dot_product_attention(
+                      q, k, v, scale=1.0),
+                  moved=nbytes(q, k, v, q),
+                  ops=[(3 * 4 * 2 * 100 * 300 * 32, "tf32")],
+                  f64_fn=lambda: attention64(q, k, v))
     row["per_forward"] = 0
     rows["attend"].append(row)
     torch.cuda.empty_cache()
@@ -900,6 +957,7 @@ def phase_sformer(dev, smi):
     """The Sformer serving path at full width: video -> SimDR logits ->
     joints, f32 with kernels and plain, then the bf16 mode."""
     from hiddenpose_tpu_torch.config import t128_config
+    from hiddenpose_tpu_torch.models import sformer as sformer_module
     from hiddenpose_tpu_torch.models.sformer import build_sformer, serve_video
     from hiddenpose_tpu_torch.ops import kernels as K
 
@@ -963,13 +1021,33 @@ def phase_sformer(dev, smi):
         model.set_use_kernels(flag)
         with deterministic(warn_only=True):
             outs[flag] = serve_video(model, videos[0])
-    rel = ((outs[True][1] - outs[False][1]).abs().max()
-           / outs[False][1].abs().max()).item()
+    # The same forward with every attention taken in float64: the joint
+    # read sums 131 096 weighted values a row, where the plain f32 version
+    # (cuBLAS's unsplit batched GEMM) errs a thousand times more than the
+    # kernel, whose chunks sum 2048 each.  So the kernels are held to
+    # SFORMER_TOL against this forward, and against the plain f32 forward
+    # to SFORMER_TOL plus the plain forward's own distance from it.
+    with mock.patch.object(
+            sformer_module, "attend_ref",
+            lambda q, k, v: attention64(q, k, v).to(v.dtype)), \
+            deterministic(warn_only=True):
+        exact = serve_video(model, videos[0])[1]
+
+    def rel_err(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    rel = rel_err(outs[True][1], outs[False][1])
+    rel_exact = rel_err(outs[True][1], exact)
+    plain_exact = rel_err(outs[False][1], exact)
     j_bins = 2 * (outs[True][0] - outs[False][0]).abs().max().item()
-    log(f"[7 sformer] kernels vs plain: logits max rel err {rel:.3e} "
-        f"(tolerance {SFORMER_TOL}), joints max err {j_bins:.3e} bins "
-        f"(tolerance {SFORMER_JOINT_TOL})")
-    if not rel <= SFORMER_TOL or not j_bins <= SFORMER_JOINT_TOL:
+    log(f"[7 sformer] logits max rel err, kernels vs the float64-attention "
+        f"forward {rel_exact:.3e} (tolerance {SFORMER_TOL}), plain vs the "
+        f"same {plain_exact:.3e}, kernels vs plain {rel:.3e} (tolerance "
+        f"{SFORMER_TOL} + the plain forward's); joints max err "
+        f"{j_bins:.3e} bins (tolerance {SFORMER_JOINT_TOL})")
+    if not rel_exact <= SFORMER_TOL \
+            or not rel <= SFORMER_TOL + plain_exact \
+            or not j_bins <= SFORMER_JOINT_TOL:
         raise RuntimeError("sformer: kernels and plain versions disagree")
 
     timing = {True: [], False: []}
@@ -1018,6 +1096,8 @@ def phase_sformer(dev, smi):
     res = dict(tokens=n_tokens, latency_ms=lat, launches=counts,
                joints_spread=spread, joints_moved_between_videos=moved,
                no_rotary_rel=rot_rel, logits_max_rel_err=rel,
+               logits_rel_err_vs_f64_attention=rel_exact,
+               plain_logits_rel_err_vs_f64_attention=plain_exact,
                joints_max_err_bins=j_bins,
                f32={"kernels": timing[True], "plain": timing[False]},
                bf16=dict(ms_per_capture=ms_b, peak_memory_bytes=peak_b,
@@ -1078,17 +1158,36 @@ def phase_probes(dev):
                       ops=[(2 * m * kk * n, "f32")], tag="8 probes")
         row["per_run"] = 1
         # the launch alone, into a preallocated output, beside the library
-        # call into one: what the wrapper's checks and torch.empty add
+        # call into one: 20 readings of each, in turns, 50 launches a
+        # reading; the medians are compared
         out = torch.empty((m, n), device=dev)
-        row["launch_ms"] = cuda_ms(lambda: _build.launch(
-            "hp_probe_dot_f32", a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            m, kk, n), iters=200)
-        row["library_out_ms"] = cuda_ms(lambda: torch.matmul(a, b, out=out),
-                                        iters=200)
+        reads = {"launch": [], "library": []}
+        for _ in range(20):
+            reads["launch"].append(cuda_ms(lambda: _build.launch(
+                "hp_probe_dot_f32", a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), m, kk, n), iters=50))
+            reads["library"].append(cuda_ms(
+                lambda: torch.matmul(a, b, out=out), iters=50))
+        row["launch_ms"] = float(np.median(reads["launch"]))
+        row["library_out_ms"] = float(np.median(reads["library"]))
+        row["launch_ms_range"] = [min(reads["launch"]), max(reads["launch"])]
+        row["library_out_ms_range"] = [min(reads["library"]),
+                                       max(reads["library"])]
         log(f"[8 probes] probe_dot_f32 ({m},{kk})@({kk},{n}): launch alone "
-            f"{row['launch_ms']:.4f} ms, through the wrapper {row['ms']:.4f} "
-            f"ms; torch.matmul(out=) {row['library_out_ms']:.4f} ms, "
-            f"allocating {row['library_ms']:.4f} ms")
+            f"{row['launch_ms']:.4f} ms (median of 20, "
+            f"{row['launch_ms_range'][0]:.4f}-{row['launch_ms_range'][1]:.4f}"
+            f"), through the wrapper {row['ms']:.4f} ms; torch.matmul(out=) "
+            f"{row['library_out_ms']:.4f} ms "
+            f"({row['library_out_ms_range'][0]:.4f}-"
+            f"{row['library_out_ms_range'][1]:.4f}), allocating "
+            f"{row['library_ms']:.4f} ms")
+        if not torch.equal(K.probe_dot_f32(a, b), K.probe_dot_f32(a, b)):
+            raise RuntimeError("probe_dot_f32: two calls differ")
+        if row["launch_ms"] > PROBE_DOT_SLOWER * row["library_out_ms"]:
+            raise RuntimeError(
+                f"probe_dot_f32 at N = {n}: the launch takes "
+                f"{row['launch_ms']:.4f} ms, more than {PROBE_DOT_SLOWER} x "
+                f"torch.matmul(out=)'s {row['library_out_ms']:.4f} ms")
         rows["probe_dot_f32"].append(row)
     return rows, counts, results
 
@@ -1163,7 +1262,7 @@ def main() -> int:
                       else "operations"),
             library_ms=(total("library_ms") if all(
                 x["library_ms"] is not None for x in on_path) else None)))
-        if "bound_fma_ms" in on_path[0]:  # K4, K4-dx: the fp32 FMA bound
+        if "bound_fma_ms" in on_path[0]:  # K4, K4-dx, K9: the FMA bound
             kernels[-1].update(
                 bound_fma_ms=total("bound_fma_ms"),
                 err_vs_f64=max(x["err_vs_f64"] for x in on_path),

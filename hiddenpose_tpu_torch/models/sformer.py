@@ -13,9 +13,9 @@ Port of ``hiddenpose_tpu/models/sformer.py``:
   (b, joints, 4, out_dim // 4): SimDR logits, decoded by
   ``ops/softargmax.py::simdr_decode``.
 
-The grouped patch attention runs in the hand-written kernel
-(``ops/kernels/attn.py``, K9); the joint-token read (24 queries over all
-f*n keys) stays on the library path, see that module for why.
+The grouped patch attention and the joint-token read (24 queries over all
+f*n keys) both run in the hand-written kernel (``ops/kernels/attn.py``,
+K9), which splits the keys of the second across blocks.
 
 Numerics follow flax where it differs from PyTorch's defaults: LayerNorm
 eps 1e-6, the tanh approximation of GELU.  ``dtype`` is the activation type
@@ -110,10 +110,11 @@ class JointTokenAttention(nn.Module):
 
     def _attend(self, q, k, v):
         """Softmax attention over (groups, n, dh).  Shapes the router takes
-        (``attend_routed``) go to K9: the raw wrapper in a serving forward,
-        its ``autograd.Function`` where a gradient is wanted.  The rest
-        (the joint-token read) and ``use_kernels=False`` run the plain
-        version."""
+        (``attend_routed``: the grouped patch attention and the joint-token
+        read alike) go to K9: the raw wrapper in a serving forward, its
+        ``autograd.Function`` where a gradient is wanted.  A shape the
+        kernel does not take (a head dim that is no multiple of 4) and
+        ``use_kernels=False`` run the plain version."""
         if self.use_kernels and attend_routed(q.shape, k.shape):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             if torch.is_grad_enabled() and (

@@ -50,7 +50,8 @@ SIGNATURES = {
     "hp_conv3p_wgrad": [_P] * 5 + [_I] * 8 + [_P],
     "hp_maxpool3d_k3s2p1_vjp": [_P] * 3 + [_I] * 8 + [_P],
     "hp_maxpool2_bwd": [_P] * 3 + [_I] * 7 + [_P],
-    "hp_attend_fwd": [_P] * 4 + [_L] + [_I] * 5 + [_P],
+    "hp_attend_plan": [_L] + [_I] * 3,
+    "hp_attend_fwd": [_P] * 5 + [_L] + [_I] * 5 + [_P],
     "hp_probe_im2col": [_P] * 2 + [_P],
     "hp_probe_slice_transpose": [_P] * 3 + [_I] * 2 + [_P],
     "hp_probe_dot_f32": [_P] * 3 + [_I] * 3 + [_P],

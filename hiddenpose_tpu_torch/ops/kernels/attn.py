@@ -1,4 +1,4 @@
-"""K9: fused short-sequence attention, ``softmax(q k^T) v`` in one pass.
+"""K9: fused attention, ``softmax(q k^T) v`` in one pass.
 
 Replaces ``hiddenpose_tpu/ops/pallas/attn_vmem.py::attend_fused`` (body
 ``_attn_kernel``): the grouped patch attention of the Sformer
@@ -6,8 +6,10 @@ Replaces ``hiddenpose_tpu/ops/pallas/attn_vmem.py::attend_fused`` (body
 Lq 1024, Lk 1048, head dim 32 at full width) and of the TimeSformer.  The
 plain formulation writes the f32 score tensor to device memory and reads it
 back twice; the kernel never does.  The CUDA source is ``csrc/attn.cu``; its
-header says what bounds it (the fp32 FMA rate, once the scores stay on the
-chip) and how the streaming, online-softmax design answers that.
+header says what bounds it and how the design answers that: at head dim 32
+both products run on the tensor cores (``wgmma``), k and v stream through a
+shared-memory ring, the softmax is the online one, and few-row, long-key
+calls are split over the keys across blocks.
 
 Contract (the JAX function's): ``out = softmax(q k^T, axis=-1) v`` for q
 (B, Lq, dh) **already scaled** by ``dh ** -0.5``, k and v (B, Lk, dh); f32
@@ -16,19 +18,26 @@ scores and f32 max-subtracted softmax; the probabilities cast to
 ``v.dtype``.  No mask, no dropout.  The (q/k, v) dtypes taken are
 (f32, f32), (bf16, bf16) and (f32, bf16): the last is what the Sformer's
 bfloat16 mode feeds it, where the float32 rotary tables promote q and k.
-f32 inputs use fp32 FMA only, never TF32.
+An f32 operand never takes a single TF32 pass: on the tensor cores it is
+split into TF32 hi and lo parts and multiplied in three passes (3xTF32,
+:func:`attend_3xtf32_ref` is that arithmetic in plain PyTorch), which errs
+against a float64 attention no more than the plain f32 version does; head
+dims other than 32 use fp32 FMA.
 
 Which shapes go where.  The kernel takes every head dim that is a multiple
 of 4 up to 256 and any Lq and Lk (it masks ragged tails itself; the TPU
-kernel's ``Lq % 8`` and ``dh % 8`` were its compiler's limits).  The
-model's router (:func:`attend_routed`) sends it every such call with
-``Lk <= 4096``: every shape the TPU router sends and more.  Calls with
-longer keys stay on the library path (``torch.bmm`` / ``softmax``): that is
-the joint-token read (Lq = 24, Lk = 131 096 at full width), whose 8 groups
-of 24 rows would occupy 8 blocks of the card's 132 SMs, each walking all
-131 k keys alone, because this kernel does not split keys across blocks:
-at that shape it takes 15.5 ms against 5.1 ms for the library path
-(``chip_smoke.py`` phase 3, NVIDIA H100 80GB HBM3, 700 W).
+kernel's ``Lq % 8``, ``dh % 8`` and ``Lk <= 4096`` were its compiler's and
+its fast memory's limits).  The model's router (:func:`attend_routed`)
+sends it every such call: every shape the TPU router sends, and the
+joint-token read (Lq = 24, Lk = 131 096 at full width), which the TPU
+router leaves to XLA.  There 8 groups of 24 rows cannot fill 132 SMs, so
+the kernel cuts the keys into chunks (65 of 2048 at that shape), a block a
+chunk, and a second small kernel combines the chunks' running max, sum and
+unnormalised accumulator in chunk order (:func:`attend_split_ref` is that
+in plain PyTorch; no atomics, so two calls agree bit for bit): 0.18 ms a
+call against 5.09 ms for ``torch.bmm`` / ``softmax`` / ``bmm``, whose
+batched GEMM does not split the keys (``chip_smoke.py`` phase 3, NVIDIA
+H100 80GB HBM3, 700 W).
 
 * :func:`attend_ref`: the plain version, used by the tests, by CPU
   tensors and by ``set_use_kernels(False)``;
@@ -46,9 +55,9 @@ from __future__ import annotations
 import torch
 
 from hiddenpose_tpu_torch.ops.kernels import _build
+from hiddenpose_tpu_torch.ops.kernels._tf32 import tf32_split
 
 MAX_DH = 256
-ROUTED_MAX_LK = 4096
 _DTYPES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
            (torch.float32, torch.bfloat16))
 
@@ -62,10 +71,10 @@ def attend_supported(q_shape, k_shape) -> bool:
 
 
 def attend_routed(q_shape, k_shape) -> bool:
-    """Whether the model sends this call to the kernel: a shape it takes
-    with at most 4096 keys.  Longer keys mean few, long groups, which the
-    kernel is measured slower on (see the module docstring)."""
-    return attend_supported(q_shape, k_shape) and k_shape[1] <= ROUTED_MAX_LK
+    """Whether the model sends this call to the kernel: every shape it
+    takes.  Few rows against long keys (the joint-token read) are split
+    over the keys inside the kernel (see the module docstring)."""
+    return attend_supported(q_shape, k_shape)
 
 
 def attend_ref(q, k, v):
@@ -74,6 +83,69 @@ def attend_ref(q, k, v):
     sim = torch.bmm(q.float(), k.float().transpose(1, 2))
     attn = torch.softmax(sim, dim=-1).to(v.dtype)
     return torch.bmm(attn.float(), v.float()).to(v.dtype)
+
+
+def _bmm_3xtf32(a, b):
+    """a @ b as the tensor cores take f32 operands: both split into TF32 hi
+    and lo parts, three f32 products, the two small terms summed first."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return (torch.bmm(al, bh) + torch.bmm(ah, bl)) + torch.bmm(ah, bh)
+
+
+def attend_3xtf32_ref(q, k, v):
+    """The kernel's arithmetic in plain PyTorch.  f32 q and k: the scores as
+    three TF32 products (:func:`_bmm_3xtf32`); bf16 q and k: one exact
+    product.  f32 max-subtracted exponentials p and their row sum l.  An
+    f32 v: ``p v`` as three TF32 products; a bf16 v: one product on p
+    rounded to bf16 (l is summed before the rounding).  The quotient by l
+    comes last, as in the kernel."""
+    kt = k.float().transpose(1, 2).contiguous()
+    if q.dtype == torch.float32:
+        sim = _bmm_3xtf32(q, kt)
+    else:
+        sim = torch.bmm(q.float(), kt)
+    p = torch.exp(sim - sim.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    if v.dtype == torch.float32:
+        acc = _bmm_3xtf32(p, v)
+    else:
+        acc = torch.bmm(p.to(v.dtype).float(), v.float())
+    return (acc / l).to(v.dtype)
+
+
+def attend_split_ref(q, k, v, splits: int):
+    """Plain version of the split over the keys: the keys are cut into
+    ``splits`` chunks of ``ceil(Lk / splits)``; each chunk gives its rows'
+    running max m, sum l and unnormalised accumulator; the chunks combine
+    in order as ``sum_s exp(m_s - m) acc_s / sum_s exp(m_s - m) l_s``.  A
+    chunk with no key (m = -inf, l = 0) weighs 0."""
+    b, lq, dh = q.shape
+    lk = k.shape[1]
+    chunk = -(-lk // splits)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        ks = k[:, s * chunk:(s + 1) * chunk].float()
+        vs = v[:, s * chunk:(s + 1) * chunk]
+        if ks.shape[1] == 0:
+            ms.append(q.new_full((b, lq, 1), float("-inf"), dtype=torch.float32))
+            ls.append(q.new_zeros((b, lq, 1), dtype=torch.float32))
+            accs.append(q.new_zeros((b, lq, dh), dtype=torch.float32))
+            continue
+        sim = torch.bmm(q.float(), ks.transpose(1, 2))
+        m = sim.amax(dim=-1, keepdim=True)
+        p = torch.exp(sim - m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.bmm(p.to(v.dtype).float(), vs.float()))
+    m = torch.stack(ms).amax(dim=0)
+    num = torch.zeros_like(accs[0])
+    den = torch.zeros_like(ls[0])
+    for m_s, l_s, acc_s in zip(ms, ls, accs):
+        w = torch.exp(m_s - m)
+        num = num + w * acc_s
+        den = den + w * l_s
+    return (num / den).to(v.dtype)
 
 
 def attend(q, k, v):
@@ -103,9 +175,17 @@ def attend(q, k, v):
     if dev.type != "cuda":
         raise ValueError(f"attend: unsupported device {dev}")
 
+    # The kernel's own plan: S > 1 chunks of keys for few-row, long-key
+    # calls, whose partial rows pass through a workspace.
+    splits = _build.library().hp_attend_plan(b, lq, lk, dh)
+    if splits < 1:
+        raise ValueError(f"attend: the kernel takes no shape "
+                         f"q {tuple(q.shape)} k {tuple(k.shape)}")
+    ws = (torch.empty(splits * b * lq * (dh + 2), device=dev,
+                      dtype=torch.float32) if splits > 1 else None)
     out = torch.empty((b, lq, dh), device=dev, dtype=v.dtype)
     _build.launch("hp_attend_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, lq, lk, dh,
+                  out.data_ptr(), _build.ptr(ws), b, lq, lk, dh,
                   int(q.dtype == torch.bfloat16),
                   int(v.dtype == torch.bfloat16))
     attend.launches += 1

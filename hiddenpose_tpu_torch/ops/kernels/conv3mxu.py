@@ -38,6 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from hiddenpose_tpu_torch.ops.kernels import _build
+from hiddenpose_tpu_torch.ops.kernels._tf32 import (  # noqa: F401
+    tf32_round,  # re-exported beside tf32_split, as before the move
+    tf32_split,
+)
 
 
 def conv3mxu_supported(cin: int, cout: int) -> bool:
@@ -63,23 +67,6 @@ def _epilogue(y, scale, shift, relu):
 def conv3_mxu_ref(x, k, scale=None, shift=None, relu=False):
     """Plain version: ``F.conv3d(pad=1)`` + affine + ReLU, NDHWC in/out."""
     return _epilogue(_conv_ndhwc(x, k), scale, shift, relu)
-
-
-def tf32_round(t):
-    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32`` does: half a TF32 ulp is added to the
-    bit pattern's magnitude and the low 13 bits are cleared.  Infinities
-    and zeros come back unchanged."""
-    bits = t.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def tf32_split(t):
-    """(hi, lo), both TF32 values held in float32, with ``hi + lo`` within
-    2^-22 relative of ``t``: ``hi = tf32(t)``, ``lo = tf32(t - hi)`` (the
-    difference is exact in float32)."""
-    hi = tf32_round(t)
-    return hi, tf32_round(t - hi)
 
 
 def conv3_mxu_3xtf32_ref(x, k, scale=None, shift=None, relu=False):

@@ -12,7 +12,10 @@ held against the numpy / torch expression the TPU script compares with:
 * B, :func:`probe_slice_transpose`: (M, N) -> ``x[:, :N/2].T`` and
   ``x[:, N/2:].T`` by shared-memory tiled transposes; exact;
 * C and C64, :func:`probe_dot_f32`: a float32 SIMT FMA tiled matrix
-  product (no TF32) at N = 128 and N = 64, against ``torch.matmul``.
+  product (no TF32) at N = 128 and N = 64, against ``torch.matmul``: small
+  output tiles that fill the card, k-slices by ``cp.async``, partial sums
+  added in a fixed order (two calls agree bit for bit); its launch is no
+  slower than the library's.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  ``scripts/torch_diag_stem_paired.py`` runs

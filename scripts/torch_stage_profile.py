@@ -47,6 +47,9 @@ B = chip_smoke.B
 # K4's conv kernel and its weight preparation (csrc/conv3mxu.cu), printed
 # by name under the profiler: the preparation is part of every K4 call
 K4_KERNELS = ("conv3_tf32x3_kernel", "prep_kernel")
+# K9's device kernels: the grouped form, the split over the keys (the
+# joint-token read) and the pass that combines its chunks.
+K9_KERNELS = ("attend_tc_kernel", "attend_tc_split_kernel", "combine_kernel")
 
 
 def stage_times(model, lct, meas, batch_chunk):
@@ -190,14 +193,14 @@ def sformer_profile(dev, smi):
             ms=table(f"f32 use_kernels={flag}", model)))
     model.set_use_kernels(True)
     out["f32_profile"] = device_profile(
-        "sformer f32", lambda: serve_video(model, video))
+        "sformer f32", lambda: serve_video(model, video), also=K9_KERNELS)
     del model
     torch.cuda.empty_cache()
     model = build_sformer(cfg, device=dev, dtype="bfloat16")
     model.load_state_dict(weights)
     out["bf16"] = table("bf16 use_kernels=True", model)
     out["bf16_profile"] = device_profile(
-        "sformer bf16", lambda: serve_video(model, video))
+        "sformer bf16", lambda: serve_video(model, video), also=K9_KERNELS)
     print(smi, flush=True)
     return out
 

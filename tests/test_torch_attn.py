@@ -2,7 +2,9 @@
 ``attend_ref`` against the JAX package's Pallas kernel in interpret mode
 and against its ``attend_ref``; the ``autograd.Function``'s gradients
 against ``jax.grad`` of the JAX ``attend_fused``; the wrapper's argument
-checks and the router.  On a CPU tensor the wrapper runs the plain version,
+checks and the router; the plain emulations of the CUDA kernel's arithmetic
+(three TF32 passes, the split over the keys) against a float64 attention,
+the plain version and the JAX package.  On a CPU tensor the wrapper runs the plain version,
 so these tests hold the arithmetic contract; the CUDA kernel itself is held
 against the plain version on the GPU (``tests/test_torch_kernels_cuda.py``,
 ``chip_smoke.py``).
@@ -21,11 +23,14 @@ import torch
 
 from hiddenpose_tpu.ops.pallas import attn_vmem as jax_attn
 from hiddenpose_tpu_torch.ops.kernels import KERNELS
+from hiddenpose_tpu_torch.ops.kernels._tf32 import tf32_round
 from hiddenpose_tpu_torch.ops.kernels.attn import (
     AttendFused,
     attend,
+    attend_3xtf32_ref,
     attend_diff,
     attend_ref,
+    attend_split_ref,
     attend_routed,
     attend_supported,
 )
@@ -155,7 +160,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_router_covers_the_tpu_router():
     """Every shape the JAX package sends to its kernel, the port sends to
-    K9; the joint-token read stays on the library path in both."""
+    K9; so it does the joint-token read (more than 4096 keys), which the
+    TPU router leaves to XLA and the port's kernel splits over the keys."""
     for lq in (8, 24, 128, 1024):
         for lk in (8, 129, 152, 1048, 4096):
             for dh in (8, 16, 24, 32, 64, 128, 256):
@@ -163,10 +169,122 @@ def test_router_covers_the_tpu_router():
                     assert attend_routed((8, lq, dh), (8, lk, dh))
     assert attend_routed((8, 100, 32), (8, 1048, 32))   # no Lq % 8 limit
     assert attend_routed((8, 64, 20), (8, 512, 20))     # dh % 4 is enough
-    assert not attend_routed((8, 24, 32), (8, 131096, 32))   # joint read
+    assert not jax_attn.attend_fused_supported((8, 24, 32), (8, 131096, 32))
+    assert attend_routed((8, 24, 32), (8, 131096, 32))  # joint read
     assert attend_supported((8, 24, 32), (8, 131096, 32))
+    assert not attend_routed((8, 64, 30), (8, 512, 30))
     assert not attend_supported((8, 64, 30), (8, 512, 30))
     assert not attend_supported((8, 64, 260), (8, 512, 260))
+
+
+# The tolerance chip_smoke.py holds the f32 kernel to against the plain
+# version: |got - want| <= atol + rtol * |want|.
+ATTN_F32_TOL = dict(rtol=1e-5, atol=2e-6)
+EXTREME = ((1, 8, 136, 8), 50.0)
+
+
+def _attention64(q, k, v):
+    q, k, v = (torch.from_numpy(a).double() for a in (q, k, v))
+    return (torch.softmax(q @ k.transpose(1, 2), -1) @ v).numpy()
+
+
+def _emulation_cases():
+    return [(s, None) for s in SHAPES] + [EXTREME]
+
+
+@pytest.mark.parametrize("shape,q_scale", _emulation_cases())
+def test_3xtf32_emulation_is_as_close_to_float64_as_plain_f32(shape, q_scale):
+    """Three TF32 passes per product: the error against a float64 attention
+    is at most twice the plain f32 version's own."""
+    q, k, v = _qkv(shape, 7, q_scale=q_scale)
+    want = _attention64(q, k, v)
+    got = attend_3xtf32_ref(_t(q), _t(k), _t(v)).numpy()
+    plain = attend_ref(_t(q), _t(k), _t(v)).numpy()
+    assert np.abs(got - want).max() <= 2 * np.abs(plain - want).max()
+
+
+def _attend_one_tf32_pass(q, k, v):
+    """What the kernel must never do: every operand rounded to TF32 once."""
+    sim = torch.bmm(tf32_round(q), tf32_round(k.transpose(1, 2).contiguous()))
+    p = torch.exp(sim - sim.amax(dim=-1, keepdim=True))
+    return torch.bmm(tf32_round(p), tf32_round(v)) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("shape,q_scale", _emulation_cases())
+def test_one_tf32_pass_fails_the_float64_check(shape, q_scale):
+    """One TF32 pass per product is far outside the limit that the
+    three-pass form meets."""
+    q, k, v = _qkv(shape, 7, q_scale=q_scale)
+    want = _attention64(q, k, v)
+    got = _attend_one_tf32_pass(_t(q), _t(k), _t(v)).numpy()
+    plain = attend_ref(_t(q), _t(k), _t(v)).numpy()
+    assert np.abs(got - want).max() > 2 * np.abs(plain - want).max()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_3xtf32_emulation_matches_pallas_interpret_f32(shape):
+    q, k, v = _qkv(shape, 0)
+    got = attend_3xtf32_ref(_t(q), _t(k), _t(v)).numpy()
+    pallas = np.asarray(jax_attn._attend_fused_impl(
+        _j(q), _j(k), _j(v), interpret=True))
+    np.testing.assert_allclose(got, pallas, **ATTN_F32_TOL)
+
+
+@pytest.mark.parametrize("qk_dtype", [torch.bfloat16, torch.float32])
+def test_bf16_v_emulation_within_one_ulp_of_plain(qk_dtype):
+    """With a bf16 v the kernel rounds the unnormalised probability (the
+    plain version the normalised one): the bf16 outputs differ by at most
+    one bf16 ulp, 2^-7 of the value (atol for outputs near zero)."""
+    q, k, v = _qkv((2, 64, 200, 32), 1)
+    args = _t(q, qk_dtype), _t(k, qk_dtype), _t(v, torch.bfloat16)
+    got = attend_3xtf32_ref(*args)
+    want = attend_ref(*args)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+
+
+# (B, Lq, Lk, dh), chunks: one chunk, two, seven, more chunks than keys need
+# (a chunk longer than Lk is S = 1; here the last chunks are empty), and a
+# last chunk with one key.
+SPLIT_CASES = [((2, 24, 300, 32), 1), ((2, 24, 300, 32), 2),
+               ((2, 24, 300, 32), 7), ((1, 130, 40, 16), 64),
+               ((2, 24, 301, 32), 3), ((1, 1, 129, 8), 2)]
+
+
+@pytest.mark.parametrize("shape,splits", SPLIT_CASES)
+def test_split_over_the_keys_equals_plain(shape, splits):
+    q, k, v = _qkv(shape, 8)
+    got = attend_split_ref(_t(q), _t(k), _t(v), splits).numpy()
+    want = attend_ref(_t(q), _t(k), _t(v)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **ATTN_F32_TOL)
+
+
+def test_split_over_the_keys_extreme_logits_and_bf16_v():
+    q, k, v = _qkv(*EXTREME[:1], 9, q_scale=EXTREME[1])
+    got = attend_split_ref(_t(q), _t(k), _t(v), 5).numpy()
+    np.testing.assert_allclose(got, attend_ref(_t(q), _t(k), _t(v)).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    vb = _t(v, torch.bfloat16)
+    got = attend_split_ref(_t(q), _t(k), vb, 5)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), attend_ref(_t(q), _t(k), vb).float(),
+                               rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("splits", [3, 65])
+def test_split_matches_jax_reference_at_a_joint_token_read_shape(splits):
+    """Lq 24 against more keys than the TPU router takes (Lk > 4096)."""
+    shape = (2, 24, 4120, 32)
+    assert not jax_attn.attend_fused_supported(shape[:2] + shape[3:],
+                                               (2, 4120, 32))
+    q, k, v = _qkv(shape, 10)
+    got = attend_split_ref(_t(q), _t(k), _t(v), splits).numpy()
+    want = np.asarray(jax_attn.attend_ref(_j(q), _j(k), _j(v)))
+    np.testing.assert_allclose(got, want, **ATTN_F32_TOL)
+    np.testing.assert_allclose(attend(_t(q), _t(k), _t(v)).numpy(), want,
+                               **ATTN_F32_TOL)
 
 
 def test_kernel_is_registered():

@@ -430,8 +430,9 @@ def _qkv(rng, shape, dev, q_scale=None):
 
 @pytest.mark.parametrize("shape", ATTEND_SHAPES)
 def test_attend_f32(dev, shape):
-    """f32 FMA in the kernel, f32 bmm (TF32 off) in the plain version: they
-    differ in summation order and in the online softmax's rescaling."""
+    """Three TF32 passes on the tensor cores (head dim 32) or f32 FMA in the
+    kernel, f32 bmm (TF32 off) in the plain version: they differ in
+    summation order and in the online softmax's rescaling."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _qkv(np.random.RandomState(11), shape, dev)
     got = _counted(K.attend, lambda: K.attend(q, k, v))
@@ -461,6 +462,53 @@ def test_attend_bf16_v(dev, shape, qk_dtype):
     # near zero the differently rounded probabilities weigh more (~2e-4)
     torch.testing.assert_close(got.float(), K.attend_ref(q, k, v).float(),
                                rtol=2.0 ** -7, atol=1e-3)
+
+
+# The three dtype pairs at ragged Lq and Lk, head dims on the tensor-core
+# form (32) and on the SIMT form, and few rows against long ragged keys,
+# which the kernel splits over the keys.
+ATTEND_PAIRS = [(torch.float32, torch.float32),
+                (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.bfloat16)]
+ATTEND_RAGGED = [(2, 77, 203, 8), (2, 77, 203, 32), (3, 130, 333, 32),
+                 (2, 77, 203, 64), (1, 77, 203, 128),
+                 (2, 1, 4099, 32), (2, 24, 9001, 32), (1, 130, 5003, 32),
+                 (2, 24, 9001, 64)]
+
+
+@pytest.mark.parametrize("dtypes", ATTEND_PAIRS)
+@pytest.mark.parametrize("shape", ATTEND_RAGGED)
+def test_attend_ragged_all_dtype_pairs_repeat_bit_for_bit(dev, shape, dtypes):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(np.random.RandomState(18), shape, dev)
+    q, k, v = q.to(dtypes[0]), k.to(dtypes[0]), v.to(dtypes[1])
+    got = K.attend(q, k, v)
+    again = K.attend(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtypes[1] and torch.equal(got, again)
+    want = K.attend_ref(q, k, v)
+    if dtypes[1] == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+    else:
+        # one bf16 ulp of the output, and near zero the two versions'
+        # probabilities, each rounded to bf16 on its own (2^-9 relative):
+        # a few sigma of sqrt(Lk) such terms, about 1e-3 at 200 keys
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=2e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 130, 333, 32), (2, 24, 9001, 32),
+                                   (2, 77, 203, 64)])
+def test_attend_f32_against_float64(dev, shape):
+    """The kernel errs against a float64 attention at most twice as much
+    as the plain f32 version (one TF32 pass would read a hundred times)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(np.random.RandomState(19), shape, dev)
+    want = torch.softmax(q.double() @ k.double().transpose(1, 2), -1) \
+        @ v.double()
+    err = (K.attend(q, k, v).double() - want).abs().max().item()
+    plain = (K.attend_ref(q, k, v).double() - want).abs().max().item()
+    assert err <= 2 * plain, (err, plain)
 
 
 def test_attend_function_keeps_the_graph(dev):
@@ -596,3 +644,21 @@ def test_probe_dot_ragged(dev, mkn):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, K.probe_dot_f32_ref(a, b), rtol=1e-5,
                                atol=1e-5)
+    assert torch.equal(got, K.probe_dot_f32(a, b))  # fixed summation order
+
+
+@pytest.mark.parametrize("mkn", [(33, 1000, 17), (512, 1024, 128),
+                                 (512, 1024, 64)])
+def test_probe_dot_long_k(dev, mkn):
+    """The probe script's shapes and a ragged one with as long a K: within
+    1e-5 of the largest output (the script's own limit), and two calls
+    agree bit for bit (the partial tiles are summed in a fixed order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = mkn
+    rng = np.random.RandomState(20)
+    a, b = _t(rng, (m, k), dev), _t(rng, (k, n), dev)
+    got = K.probe_dot_f32(a, b)
+    want = K.probe_dot_f32_ref(a, b)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(got, K.probe_dot_f32(a, b))
