@@ -94,7 +94,7 @@ PEAK = {"f32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # summation order, a few ulps of the output scale.  Max-pool selects
 # values and must match exactly.
 CONV_TOL = 1e-4     # max |kernel - plain| / max |plain|
-# K4, K4-dx and K9 against a float64 version of the same inputs: the
+# K4, K4-dx, K6 and K9 against a float64 version of the same inputs: the
 # kernel's max error may be at most this many times the plain f32 version's
 # (cuDNN or cuBLAS, TF32 off), both read in the same call, or one f32 ulp
 # of the largest output (2^-23 of it) where that is more: below an ulp the
@@ -264,9 +264,10 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
     result's max; a tuple result (dk, db) is compared part by part.
     ``library_fn`` is the one PyTorch call for the same function, timed
     only; ``moved`` (bytes) and ``ops`` give the bound.  ``f64_fn`` gives
-    the same function in float64: the kernel's max error against it may be
-    at most F64_ERR_FACTOR times the plain version's (or one f32 ulp of
-    the plain result's max)."""
+    the same function in float64 (a tuple for a tuple result): the kernel's
+    max error against it, over all parts, may be at most F64_ERR_FACTOR
+    times the plain version's (or one f32 ulp of the plain result's
+    max)."""
     with deterministic(warn_only=True):
         got = kernel_fn()
         want = plain_fn()
@@ -292,8 +293,13 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
     err64 = None
     if f64_fn is not None:
         want64 = f64_fn()
-        err64 = tuple((t.double() - want64).abs().max().item()
-                      for t in (got, want))
+        want64 = want64 if isinstance(want64, tuple) else (want64,)
+        got_p, want_p = ((got, want) if isinstance(got, tuple)
+                         else ((got,), (want,)))
+        # the largest error over the parts (dk, db), each side
+        err64 = tuple(max((t.double() - w64).abs().max().item()
+                          for t, w64 in zip(side, want64))
+                      for side in (got_p, want_p))
         del want64
         ok = ok and err64[0] <= max(F64_ERR_FACTOR * err64[1],
                                     2.0 ** -23 * scale)
@@ -417,6 +423,19 @@ def phase_kernels(dev):
             row["per_step"] = count
             rows["conv3_planes_adjoint"].append(row)
         kw = dict(pad_mode=pad, has_bias=has_bias)
+
+        def wgrad64():
+            """K6's function in float64: one product per tap."""
+            x64 = F.pad(x.double(), (1,) * 6, mode="replicate"
+                        if pad == "edge" else "constant")
+            dz64 = dz.double().flatten(2)
+            dk = torch.stack([torch.einsum(
+                "bin,bon->io", x64[:, :, a:a + n, b_:b_ + n,
+                                   c:c + n].flatten(2), dz64)
+                for a in range(3) for b_ in range(3) for c in range(3)])
+            dk = dk.view(3, 3, 3, cin, cout)
+            return (dk, dz64.sum((0, 2))) if has_bias else (dk,)
+
         row = compare(
             f"conv3_planes_wgrad {cin}x{cout} @{n}^3 {pad}"
             f"{' +db' if has_bias else ''}",
@@ -424,7 +443,8 @@ def phase_kernels(dev):
             lambda: tuple(t for t in K.conv3_planes_wgrad_ref(x, dz, **kw)
                           if t is not None), iters=10,
             library_fn=lambda: conv3d_weight(xp, w.shape, dz),
-            moved=nbytes(x, dz, k) + (4 * cout if has_bias else 0), ops=flop)
+            moved=nbytes(x, dz, k) + (4 * cout if has_bias else 0), ops=flop,
+            f64_fn=wgrad64)
         row["per_step"] = count
         rows["conv3_planes_wgrad"].append(row)
     del x, xp, dz, r
@@ -616,7 +636,80 @@ def phase_kernels(dev):
     row["per_forward"] = 0
     rows["attend"].append(row)
     torch.cuda.empty_cache()
-    return rows
+    return rows, stem_vjp_row(dev, g)
+
+
+def stem_vjp_row(dev, g):
+    """The train-mode stem conv's matrix-product backward
+    (``ops/stem_vjp.py``; products by ``torch.matmul``, no kernel of the
+    port) at the t128 batch-2 shape against the library's conv backward,
+    both times, two calls bit for bit, and on a cut-down volume against
+    float64."""
+    from torch.nn.grad import conv3d_input, conv3d_weight
+
+    from hiddenpose_tpu_torch.ops import stem_vjp as S
+
+    def inputs(n, dtype=torch.float32):
+        x = torch.rand((B, 1, n, n, n), generator=g, device=dev)
+        w = torch.randn((64, 1, 7, 7, 7), generator=g, device=dev) / 343 ** .5
+        dy = torch.randn((B, 64, n, n, n), generator=g, device=dev)
+        return x.to(dtype), w.to(dtype), dy.to(dtype)
+
+    def ours(x, w, dy):
+        return S.stem_conv_dx(w, dy), S.stem_conv_dk(x, dy, 7)
+
+    def library(x, w, dy):
+        return (conv3d_input(x.shape, w, dy, padding=3),
+                conv3d_weight(x, w.shape, dy, padding=3))
+
+    x, w, dy = inputs(128)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with deterministic(warn_only=True):
+        got, again = ours(x, w, dy), ours(x, w, dy)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - base
+        want = library(x, w, dy)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError("stem_vjp: two calls differ")
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(got, want)]
+    del got, again, want
+    row = dict(shape=f"stem_vjp ({B},1,128^3) -> dx, dk (64,1,7^3)",
+               dx_rel_err=rel[0], dk_rel_err=rel[1],
+               scratch_peak_bytes=extra,
+               dx_ms=cuda_ms(lambda: S.stem_conv_dx(w, dy), 2),
+               dk_ms=cuda_ms(lambda: S.stem_conv_dk(x, dy, 7), 2),
+               library_dx_ms=cuda_ms(
+                   lambda: conv3d_input(x.shape, w, dy, padding=3), 1),
+               library_dk_ms=cuda_ms(
+                   lambda: conv3d_weight(x, w.shape, dy, padding=3), 1))
+    del x, w, dy
+    # a cut-down volume against float64: the long sums of dk
+    x, w, dy = inputs(48)
+    with deterministic(warn_only=True):
+        got, want = ours(x, w, dy), library(x, w, dy)
+        want64 = library(x.double(), w.double(), dy.double())
+    errs = [tuple((t.double() - w64).abs().max().item() for t in (a, b))
+            for a, b, w64 in zip(got, want, want64)]
+    ok64 = all(e[0] <= max(F64_ERR_FACTOR * e[1],
+                           2.0 ** -23 * w64.abs().max().item())
+               for e, w64 in zip(errs, want64))
+    row.update(dx_err_vs_f64=errs[0][0], library_dx_err_vs_f64=errs[0][1],
+               dk_err_vs_f64=errs[1][0], library_dk_err_vs_f64=errs[1][1])
+    log(f"[3 kernels] {row['shape']}: dx {row['dx_ms']:.3f} ms (library "
+        f"conv3d_input {row['library_dx_ms']:.3f}), dk {row['dk_ms']:.3f} ms "
+        f"(library conv3d_weight {row['library_dk_ms']:.3f}); max err / max "
+        f"against the library dx {rel[0]:.3e} dk {rel[1]:.3e} (tolerance "
+        f"{CONV_TOL}); scratch peak {extra / 2**30:.3f} GiB; two calls bit "
+        f"for bit; at 48^3 against float64: dx {errs[0][0]:.3e} (library "
+        f"{errs[0][1]:.3e}), dk {errs[1][0]:.3e} (library {errs[1][1]:.3e}), "
+        f"limit {F64_ERR_FACTOR:g} x the library's")
+    if max(rel) > CONV_TOL or not ok64:
+        raise RuntimeError("stem_vjp disagrees with the library backward")
+    torch.cuda.empty_cache()
+    return row
 
 
 def t128_captures(n: int):
@@ -1197,6 +1290,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this smoke test runs only on a GPU", file=sys.stderr)
         return 2
+    try:
+        import hiddenpose_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: cannot import hiddenpose_tpu_torch ({e}); run it "
+              "from the root of a checkout, beside the package",
+              file=sys.stderr)
+        return 1
     # cuBLAS is deterministic only with a fixed workspace; set before the
     # first CUDA call (deterministic() checks for it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1217,7 +1317,7 @@ def main() -> int:
 
     smi = timed("1 toolchain", phase_toolchain)
     timed("2 build", phase_build)
-    rows = timed("3 kernels", phase_kernels, dev)
+    rows, stem_vjp = timed("3 kernels", phase_kernels, dev)
     server, caps, serve, serve_counts = timed("4 serve", phase_serve, dev,
                                               smi)
     e2e = timed("5 e2e", phase_end_to_end, server, caps)
@@ -1263,14 +1363,16 @@ def main() -> int:
             library_ms=(total("library_ms") if all(
                 x["library_ms"] is not None for x in on_path) else None)))
         if "bound_fma_ms" in on_path[0]:  # K4, K4-dx, K9: the FMA bound
+            kernels[-1].update(bound_fma_ms=total("bound_fma_ms"))
+        if "err_vs_f64" in on_path[0]:  # those and K6: held to float64
             kernels[-1].update(
-                bound_fma_ms=total("bound_fma_ms"),
                 err_vs_f64=max(x["err_vs_f64"] for x in on_path),
                 plain_err_vs_f64=max(x["plain_err_vs_f64"] for x in on_path))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, seconds=seconds, kernels=rows, kernels_line=kernels,
+        stem_vjp=stem_vjp,
         serve=serve, end_to_end=e2e, train=train, sformer=sformer,
         probes=probes), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,8 +16,10 @@ mode off) fuses what it can:
   and the library convs all see NDHWC memory with no transposes between.
 
 In training (or whenever grad mode is on) nothing is folded: the stem is
-the library 7^3 conv, bn1 and ReLU, then the differentiable pool (K3
-forward, K7 backward); each K4 conv2 runs without epilogue through its
+the library 7^3 conv with the matrix-product backward of
+``ops/stem_vjp.py`` (the reference's ``conv_s2d_stem_diff``; plain
+autograd of the library conv with the kernels off), bn1 and ReLU, then the
+differentiable pool (K3 forward, K7 backward); each K4 conv2 runs without epilogue through its
 ``autograd.Function`` (K4 forward and dx), then bn2 and ReLU, as the JAX
 package's train path does.  Every BatchNorm is a
 :class:`FlaxBatchNorm3d`: batch statistics in training, and running
@@ -47,6 +49,7 @@ from hiddenpose_tpu_torch.ops.kernels import (
     stem_conv_raw,
     stem_conv_raw_ref,
 )
+from hiddenpose_tpu_torch.ops.stem_vjp import stem_conv_diff
 
 # Bottleneck widths whose stride-1 conv2 runs the K4 kernel (the shapes the
 # JAX package routes to conv3mxu; c512 stays a library conv there too).
@@ -175,7 +178,8 @@ class PoseNet3D(nn.Module):
 
     def stem(self, x):
         """conv7^3 + BN + ReLU then MaxPool3d(3, 2, 1): K2 and K3 in the
-        serving forward; else the library conv, bn1, ReLU and the
+        serving forward; else the library conv (its backward rewritten as
+        matrix products, ``stem_conv_diff``), bn1, ReLU and the
         differentiable pool (K3, K7)."""
         b, c, d, h, w = x.shape
         if c != 1:
@@ -188,7 +192,9 @@ class PoseNet3D(nn.Module):
             y = stem(x.reshape(b, d, h, w, 1).contiguous(),
                      dhwio(self.conv1.weight), scale, shift, relu=True)
         else:
-            y = F.relu(self.bn1(F.conv3d(x, self.conv1.weight, padding=3)))
+            conv = (stem_conv_diff(x, self.conv1.weight) if self.use_kernels
+                    else F.conv3d(x, self.conv1.weight, padding=3))
+            y = F.relu(self.bn1(conv))
             y = y.permute(0, 2, 3, 4, 1).contiguous()
             pool = (maxpool3d_k3s2p1_diff if self.use_kernels
                     else maxpool3d_k3s2p1_ref)

@@ -83,12 +83,24 @@ class Decoder(nn.Module):
 
 
 class OutConv(nn.Module):
+    """The 1x1x1 output conv as the reference's ``OutConv1x1`` computes it:
+    a contraction over the channel axis (``einsum("bcdhw,co->bodhw")``) plus
+    the bias, in plain tensor ops.  ``conv`` only holds the parameters
+    (``conv.weight`` (C_out, C_in, 1, 1, 1), ``conv.bias``), so state dicts
+    keep their names; its own forward is not called, so the backward never
+    enters the library's conv backward, which for so few channels runs a
+    slow grouped-direct kernel.  A multiply by the broadcast weight and a
+    sum over the channel axis: its autograd is element-wise passes and one
+    reduction per parameter."""
+
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv = nn.Conv3d(in_channels, out_channels, 1)
 
     def forward(self, x):
-        return self.conv(x)
+        w = self.conv.weight[:, :, 0, 0, 0]  # (C_out, C_in)
+        y = (x.unsqueeze(1) * w[None, :, :, None, None, None]).sum(dim=2)
+        return y + self.conv.bias[None, :, None, None, None]
 
 
 class UNet3d(nn.Module):

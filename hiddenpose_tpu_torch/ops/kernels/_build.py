@@ -47,7 +47,7 @@ SIGNATURES = {
     "hp_conv3_mxu_prep": [_P] * 2 + [_I] * 3 + [_P],
     "hp_conv3_mxu_fwd": [_P] * 5 + [_I] * 7 + [_P],
     "hp_conv3p_adjoint": [_P] * 3 + [_I] * 7 + [_P],
-    "hp_conv3p_wgrad": [_P] * 5 + [_I] * 8 + [_P],
+    "hp_conv3p_wgrad": [_P] * 5 + [_I] * 11 + [_P],
     "hp_maxpool3d_k3s2p1_vjp": [_P] * 3 + [_I] * 8 + [_P],
     "hp_maxpool2_bwd": [_P] * 3 + [_I] * 7 + [_P],
     "hp_attend_plan": [_L] + [_I] * 3,

@@ -193,6 +193,74 @@ def conv3_planes_wgrad_ref(x, dz, *, pad_mode="zero", has_bias=True):
     return dk.permute(2, 3, 4, 1, 0).contiguous(), db
 
 
+# K6's voxel tile is 4 (D) x 8 (H) x tw (W)
+WGRAD_TILE_DH = (4, 8)
+# about how many blocks K6's first pass is cut into: four a multiprocessor
+# of the H100 (of 528, 792, 1024, 1584 and 2112 the fastest over the t128
+# train step's 24 calls)
+WGRAD_BLOCKS = 528
+
+
+def wgrad_plan(b, cin, cout, d, h, w):
+    """How K6's first pass is cut (``csrc/conv3p_wgrad.cu``): ``tw`` the
+    tile's width (32, 16 or 8: the widest that W fills), ``cot`` output
+    channels a block (4, or 1 for a single output channel), ``cib`` input
+    channels a block (4, 2 or 1: a warp each, the largest that C_in
+    fills), ``tiles`` (B, D, H, W tile counts) and ``chunks``, the number
+    of block columns, each summing a contiguous run of tiles into one
+    partial row per output: about ``WGRAD_BLOCKS`` blocks in all, so that the wide
+    convs at small volumes split over channel groups and the narrow ones
+    at large volumes over voxels."""
+    tw = 32 if w > 16 else (16 if w > 8 else 8)
+    cot = 1 if cout == 1 else 4
+    cib = 4 if cin >= 4 else (2 if cin >= 2 else 1)
+    td, th = WGRAD_TILE_DH
+    tiles = (b, -(-d // td), -(-h // th), -(-w // tw))
+    ntiles = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+    groups = -(-cin // cib) * -(-cout // cot)
+    chunks = max(1, min(ntiles, WGRAD_BLOCKS // groups))
+    return dict(tw=tw, cot=cot, cib=cib, tiles=tiles, chunks=chunks)
+
+
+def wgrad_chunk_masks(plan, shape):
+    """For each block column of :func:`wgrad_plan`, the (B, 1, D, H, W)
+    0/1 mask of the voxels whose tiles it sums: the kernel's tile order
+    (W fastest, then H, D, B) and its contiguous runs
+    ``[tiles * c // chunks, tiles * (c + 1) // chunks)``."""
+    b, d, h, w = shape
+    td, th = WGRAD_TILE_DH
+    tw, chunks = plan["tw"], plan["chunks"]
+    _, nd, nh, nw = plan["tiles"]
+    ntiles = b * nd * nh * nw
+    masks = []
+    for c in range(chunks):
+        m = torch.zeros((b, 1, d, h, w))
+        for tile in range(ntiles * c // chunks, ntiles * (c + 1) // chunks):
+            wt, r = tile % nw, tile // nw
+            ht, r = r % nh, r // nh
+            dt, bi = r % nd, r // nd
+            m[bi, 0, dt * td:(dt + 1) * td, ht * th:(ht + 1) * th,
+              wt * tw:(wt + 1) * tw] = 1.0
+        masks.append(m)
+    return masks
+
+
+def conv3_planes_wgrad_fold_ref(x, dz, *, pad_mode="zero", has_bias=True):
+    """K6's two passes in plain PyTorch, for the CPU tests: one partial
+    (dk, db) per block column over that column's voxels, then their sum in
+    column order."""
+    b, cin, d, h, w = x.shape
+    plan = wgrad_plan(b, cin, dz.shape[1], d, h, w)
+    dk = db = None
+    for m in wgrad_chunk_masks(plan, (b, d, h, w)):
+        pk, pb = conv3_planes_wgrad_ref(x, dz * m.to(dz), pad_mode=pad_mode,
+                                        has_bias=has_bias)
+        dk = pk if dk is None else dk + pk
+        if has_bias:
+            db = pb if db is None else db + pb
+    return dk, db
+
+
 def conv3_planes_wgrad(x, dz, *, pad_mode="zero", has_bias=True):
     """dL/dkernel (3, 3, 3, C_in, C_out) and dL/dbias (C_out,) (or None)
     of :func:`conv3_planes`, from x (B, C_in, D, H, W) and
@@ -216,18 +284,17 @@ def conv3_planes_wgrad(x, dz, *, pad_mode="zero", has_bias=True):
     if dev.type != "cuda":
         raise ValueError(f"conv3_planes_wgrad: unsupported device {dev}")
 
-    # First pass: `chunks` partial sums per output, each over a fixed run
-    # of voxel tiles; second pass: their sum, in chunk order.  About 4096
-    # partial rows in all keeps the scratch small and the grid full.
-    chunks = max(1, min(1024, 4096 // (cin * cout)))
+    plan = wgrad_plan(b, cin, cout, d, h, w)
     rows = 27 * cin * cout + cout
-    partial = torch.empty((chunks, rows), device=dev, dtype=torch.float32)
+    partial = torch.empty((plan["chunks"], rows), device=dev,
+                          dtype=torch.float32)
     dk = torch.empty((3, 3, 3, cin, cout), device=dev, dtype=torch.float32)
     db = (torch.empty((cout,), device=dev, dtype=torch.float32)
           if has_bias else None)
     _build.launch("hp_conv3p_wgrad", x.data_ptr(), dz.data_ptr(),
                   partial.data_ptr(), dk.data_ptr(), _build.ptr(db), b, cin,
-                  cout, d, h, w, _PADS[pad_mode], chunks)
+                  cout, d, h, w, _PADS[pad_mode], plan["chunks"], plan["tw"],
+                  plan["cib"], plan["cot"])
     conv3_planes_wgrad.launches += 1
     return dk, db
 

@@ -96,6 +96,75 @@ def maxpool3d_k3s2p1_vjp_ref(y, g):
     return dy
 
 
+def _tie(p, q):
+    """Gradient weight of a ``maximum``'s operand p against q."""
+    return torch.where(p > q, 1.0, torch.where(p < q, 0.0, 0.5))
+
+
+def _windows(t, axis):
+    """The operands (c, a0, a1) = (t[2j], t[2j + 1], t[2j + 2]) of the
+    n + 1 windows of a halo tile's 2n + 3 entries along ``axis`` (entry 0
+    is the predecessor of the tile's even origin)."""
+    n = (t.shape[axis] - 3) // 2
+    return (t.index_select(axis, torch.arange(k, 2 * n + k + 1, 2,
+                                              device=t.device))
+            for k in range(3))
+
+
+def _axis_max_halo(t, axis):
+    """A stage's maxima of a halo tile, one per window."""
+    c, a0, a1 = _windows(t, axis)
+    return torch.maximum(torch.maximum(a0, a1), c)
+
+
+def _axis_grad(op, gr, axis):
+    """K7's per-axis step on a tile: ``op`` the stage's operands along
+    ``axis`` with their halo, ``gr`` the gradients of the tile's n + 1
+    windows (zero for a window that does not exist).  Tile index 2j is the
+    first operand (a0) of window j, 2j + 1 its second (a1) and the third
+    (c) of window j + 1.  Returns the 2n gradients of the tile's indices."""
+    n = gr.shape[axis] - 1
+    c, a0, a1 = _windows(op, axis)
+    t = torch.maximum(a0, a1)
+    w_c = _tie(c, t) * gr
+    w_a0 = _tie(t, c) * _tie(a0, a1) * gr
+    w_a1 = _tie(t, c) * _tie(a1, a0) * gr
+    even = w_a0.narrow(axis, 0, n)
+    odd = w_a1.narrow(axis, 0, n) + w_c.narrow(axis, 1, n)
+    return torch.stack([even, odd], axis + 1).flatten(axis, axis + 1)
+
+
+def maxpool3d_k3s2p1_vjp_tiled_ref(y, g, th=16, tw=16):
+    """K7's bookkeeping in plain PyTorch, for the CPU tests: tile by tile
+    as ``csrc/phase_pool_vjp.cu`` cuts the volume (``th`` x ``tw`` input
+    columns with a halo of one voxel before and two after, -inf outside,
+    all of D at once), the stage maxima u and v once per tile, then dv, du
+    and dx by :func:`_axis_grad`.  Bit-identical to
+    :func:`maxpool3d_k3s2p1_vjp_ref`."""
+    b, d, h, w, c = y.shape
+    od, oh, ow = pooled_extent(d), pooled_extent(h), pooled_extent(w)
+    inf = float("inf")
+    nh, nw = -(-h // th), -(-w // tw)
+    # planes -1 .. 2 od + 1, rows -1 .. nh th + 1, columns alike
+    yp = F.pad(y.float(), (0, 0, 1, nw * tw + 2 - w, 1, nh * th + 2 - h,
+                           1, 2 * od + 2 - d), value=-inf)
+    gp = F.pad(g.float(), (0, 0, 0, nw * tw // 2 + 1 - ow,
+                           0, nh * th // 2 + 1 - oh, 0, 1))
+    dy = torch.empty_like(yp[:, 1:2 * od + 1, 1:nh * th + 1, 1:nw * tw + 1])
+    for h0 in range(0, h, th):
+        for w0 in range(0, w, tw):
+            yt = yp[:, :, h0:h0 + th + 3, w0:w0 + tw + 3]
+            u = _axis_max_halo(yt, 3)
+            v = _axis_max_halo(u, 2)
+            gt = gp[:, :, h0 // 2:h0 // 2 + th // 2 + 1,
+                    w0 // 2:w0 // 2 + tw // 2 + 1]
+            dv = _axis_grad(v, gt, 1)
+            du = _axis_grad(u[:, 1:2 * od + 1], dv, 2)
+            dy[:, :, h0:h0 + th, w0:w0 + tw] = _axis_grad(
+                yt[:, 1:2 * od + 1, 1:th + 1], du, 3)
+    return dy[:, :d, :h, :w].contiguous()
+
+
 def maxpool3d_k3s2p1_vjp(y, g):
     """dL/dy of :func:`maxpool3d_k3s2p1` given g = dL/d(pooled):
     y (B, D, H, W, C), g (B, OD, OH, OW, C), C % 4 == 0 -> (B, D, H, W, C),
@@ -116,6 +185,9 @@ def maxpool3d_k3s2p1_vjp(y, g):
     if dev.type != "cuda":
         raise ValueError(f"maxpool3d_k3s2p1_vjp: unsupported device {dev}")
 
+    if h * w * c // 4 >= 2 ** 31:
+        raise ValueError("maxpool3d_k3s2p1_vjp: a plane of y must hold fewer "
+                         f"than 2^31 float4s, got {h} x {w} x {c // 4}")
     dy = torch.empty_like(y)
     _build.launch("hp_maxpool3d_k3s2p1_vjp", y.data_ptr(), g.data_ptr(),
                   dy.data_ptr(), b, d, h, w, c, od, oh, ow)

@@ -15,7 +15,13 @@ off).  It measures:
    time by kernel, and the device's idle share (1 - busy / wall, busy the
    union of the device kernels' intervals);
 3. one t128 train step (``make_train_step``, batch ``make_batch([0, 1])``,
-   after one warm-up step) under ``torch.profiler``: the same readings;
+   after one warm-up step) under ``torch.profiler``: the same readings,
+   its peak memory, and the device time of named pieces by (op, input
+   shapes): the stem conv's matrix-product backward (products, patch
+   copies, slab adds), the UNet's output conv, and the library backward of
+   layer1's 1x1x1 conv1, of the head's last deconv and of the K4 blocks'
+   weight gradient; then three forms of the output conv, forward and
+   backward, beside each other;
 4. one full-width float32 Sformer forward (``chip_smoke.py`` phase 7's
    model, weights and video): per stage (patch embed; per layer LayerNorm,
    qkv, joint-token read, rotary, grouped attention, out projection,
@@ -50,6 +56,35 @@ K4_KERNELS = ("conv3_tf32x3_kernel", "prep_kernel")
 # K9's device kernels: the grouped form, the split over the keys (the
 # joint-token read) and the pass that combines its chunks.
 K9_KERNELS = ("attend_tc_kernel", "attend_tc_split_kernel", "combine_kernel")
+# K6's two passes and K7, by device kernel
+TRAIN_KERNELS = K4_KERNELS + ("conv3p_wgrad_partial", "conv3p_wgrad_reduce",
+                              "maxpool_k3s2p1_vjp_kernel")
+# Pieces of the t128 batch-2 train step, by (op, input shapes): a label and
+# the substrings a profiler key must hold.  The stem conv's matrix-product
+# backward (ops/stem_vjp.py: per sample and depth tap one batched product
+# over the 128 planes for dk, one (49 x 64) . (64 x 128^3) product and 49
+# slab adds for dx), the UNet's output conv (a broadcast multiply and a
+# channel sum, forward and backward), and three library backward ops that
+# are read here and ported nowhere.
+TRAIN_OPS = {
+    "stem dk: patch copies": ("aten::copy_", "[128, 7, 7, 128, 128]"),
+    "stem dk: batched products": ("aten::bmm", "[128, 49, 16384]"),
+    "stem dk: plane sums": ("aten::sum", "[128, 49, 64]"),
+    "stem dx: products": ("aten::mm", "[49, 64], [64, 2097152]"),
+    "stem dx: slab adds": ("aten::add_",
+                           "[[128, 128, 128], [128, 128, 128]"),
+    "output conv, forward and backward": ("[2, 1, 4, 128, 128, 128]",),
+    "layer1 1x1x1 conv1 backward (256 -> 64)": (
+        "convolution_backward", "[64, 256, 1, 1, 1]"),
+    "layer1 1x1x1 conv1 backward (64 -> 64)": (
+        "convolution_backward", "[64, 64, 1, 1, 1]"),
+    "head's last deconv backward": (
+        "convolution_backward", "[2, 256, 32, 32, 32]", "[256, 256, 4, 4, 4]"),
+    "K4 blocks' library dk, c64": (
+        "convolution_backward", "[64, 64, 3, 3, 3]"),
+    "stem conv's library backward (none with the kernels on)": (
+        "convolution_backward", "[64, 1, 7, 7, 7]"),
+}
 
 
 def stage_times(model, lct, meas, batch_chunk):
@@ -221,12 +256,14 @@ def busy_seconds(events) -> float:
     return busy / 1e6  # profiler times are in microseconds
 
 
-def device_profile(tag, fn, also=()):
+def device_profile(tag, fn, also=(), ops_like=None):
     """Run ``fn`` under torch.profiler; print and return wall time, device
     busy time, idle share, the 15 kernels with the most device time and the
     12 (op, input shapes) pairs with the most device time of their own.
     Kernels whose name holds one of ``also`` are printed whatever their
-    rank, with their launches and mean time."""
+    rank, with their launches and mean time; ``ops_like`` (label ->
+    substrings) sums the device time of the (op, input shapes) keys that
+    hold every substring."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -264,10 +301,48 @@ def device_profile(tag, fn, also=()):
     for name, ms in top_ops:
         print(f"[{tag}] op {ms:10.3f} ms {100 * ms / total:6.2f}%  "
               f"{name[:150]}")
+    pieces = {}
+    for label, parts in (ops_like or {}).items():
+        hits = {k: v for k, v in by_op.items() if all(p in k for p in parts)}
+        pieces[label] = dict(device_ms=sum(hits.values()), keys=len(hits))
+        print(f"[{tag}] piece {sum(hits.values()):10.3f} ms in {len(hits)} "
+              f"(op, shapes) keys: {label}")
     return dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall,
                 device_ms_total=total, device_ms_by_kernel=dict(top),
-                named_kernels=named,
+                named_kernels=named, pieces=pieces,
                 device_ms_by_op_and_shapes=dict(top_ops))
+
+
+def out_conv_forms(dev):
+    """The UNet's 1x1x1 output conv at (2, 4, 128^3) -> (2, 1, 128^3),
+    forward and backward (ms, CUDA events, mean of 5, in turns): the
+    broadcast multiply and channel sum the port uses, ``torch.einsum``
+    (the reference's form, a batched product with K = 4), and the library
+    conv whose backward the port left."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((B, 4, 128, 128, 128), generator=g,
+                    device=dev).requires_grad_()
+    w = torch.randn((1, 4), generator=g, device=dev).requires_grad_()
+    bias = torch.randn((1,), generator=g, device=dev).requires_grad_()
+    gy = torch.randn((B, 1, 128, 128, 128), generator=g, device=dev)
+    forms = {
+        "broadcast multiply + sum": lambda: (
+            x.unsqueeze(1) * w[None, :, :, None, None, None]).sum(2),
+        "einsum": lambda: torch.einsum("bcdhw,oc->bodhw", x, w),
+        "library conv3d": lambda: F.conv3d(x, w[:, :, None, None, None]),
+    }
+    out = {}
+    for _ in range(2):
+        for name, fn in forms.items():
+            ms = chip_smoke.cuda_ms(lambda: torch.autograd.grad(
+                fn() + bias[None, :, None, None, None], (x, w, bias), gy), 5)
+            out.setdefault(name, []).append(ms)
+    for name, ms in out.items():
+        print(f"[out conv] forward + backward, {name}: "
+              f"{[round(t, 3) for t in ms]} ms", flush=True)
+    return out
 
 
 def main() -> int:
@@ -328,8 +403,13 @@ def main() -> int:
     step = make_train_step(model)
     step(state, batch, lct)  # warm-up: cuDNN's algorithm choice
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     train = device_profile("train", lambda: step(state, batch, lct),
-                           also=K4_KERNELS)
+                           also=TRAIN_KERNELS, ops_like=TRAIN_OPS)
+    train["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(f"[train] peak memory "
+          f"{train['peak_memory_bytes'] / 2**30:.3f} GiB", flush=True)
+    out_conv = out_conv_forms(dev)
     print(smi, flush=True)
     del model, state, step, batch
     torch.cuda.empty_cache()
@@ -339,7 +419,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "torch_stage_profile.json").write_text(json.dumps(dict(
         device=smi, stages=stages, burst=dict(requests=len(caps), **burst),
-        train_step=train, sformer=sformer), indent=1))
+        train_step=train, out_conv_forms=out_conv, sformer=sformer),
+        indent=1))
     return 0
 
 

@@ -199,6 +199,97 @@ def test_maxpool_vjp_ties(dev, shape):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("shape", [
+    (2, 3, 5, 5, 6, 7),      # ragged, C_out not a multiple of the 4-wide
+    (1, 5, 6, 4, 9, 17),     # register tile, C_in not one of the groups
+    (2, 1, 1, 9, 10, 40),    # W % 4 == 0 with a ragged last tile
+    (1, 2, 1, 5, 9, 33),     # rows that are not 16-byte aligned
+    (2, 4, 4, 8, 16, 64),    # two tiles along W, 16-byte copies
+    (1, 16, 8, 16, 16, 16), (2, 32, 32, 8, 8, 8)])
+def test_conv3_planes_wgrad_tiles_and_channel_groups(dev, shape, pad_mode):
+    """K6's tile widths (32, 16, 8), channel groups, both copy widths and
+    the ragged last tile with edge padding (the halo column past W - 1):
+    within 1e-5 of the max of the plain version, within twice its error
+    against float64, and two calls bit for bit."""
+    rng = np.random.RandomState(sum(shape))
+    b, cin, cout, d, h, w = shape
+    x = _t(rng, (b, cin, d, h, w), dev)
+    dz = _t(rng, (b, cout, d, h, w), dev)
+    got = K.conv3_planes_wgrad(x, dz, pad_mode=pad_mode)
+    again = K.conv3_planes_wgrad(x, dz, pad_mode=pad_mode)
+    want = K.conv3_planes_wgrad_ref(x, dz, pad_mode=pad_mode)
+    # dk in float64, one product per tap
+    xp = F.pad(x.double(), (1,) * 6,
+               mode="replicate" if pad_mode == "edge" else "constant")
+    dk64 = torch.stack([torch.einsum(
+        "bin,bon->io", xp[:, :, i:i + d, j:j + h, k:k + w].flatten(2),
+        dz.double().flatten(2))
+        for i in range(3) for j in range(3) for k in range(3)])
+    dk64 = dk64.view(3, 3, 3, cin, cout)
+    torch.cuda.synchronize()
+    for g_, a_, w_ in zip(got, again, want):
+        assert torch.equal(g_, a_)
+        assert (g_ - w_).abs().max().item() <= 1e-5 * w_.abs().max().item()
+    assert (got[0] - dk64).abs().max().item() <= max(
+        2 * (want[0] - dk64).abs().max().item(),
+        2.0 ** -23 * dk64.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 5, 6, 7, 4),        # ragged, one float4 of channels: half a group
+    (1, 7, 20, 18, 64),     # tiles that do not divide H and W
+    (1, 33, 16, 16, 12),    # an odd depth, three float4s: a ragged group
+    (2, 40, 36, 34, 8)])    # several runs of depth windows
+def test_maxpool_vjp_tiles_halos_and_depth_runs(dev, shape):
+    """K7's tiles (16 x 16 input columns, two float4s of channels, runs of
+    depth windows) on extents no tile divides, post-ReLU ties: exact, and
+    two calls bit for bit."""
+    rng = np.random.RandomState(sum(shape))
+    y = torch.clamp_min(torch.round(_t(rng, shape, dev) * 2) / 2, 0.0)
+    b, d, h, w, c = shape
+    g = _t(rng, (b, (d - 1) // 2 + 1, (h - 1) // 2 + 1, (w - 1) // 2 + 1, c),
+           dev)
+    got = K.maxpool3d_k3s2p1_vjp(y, g)
+    again = K.maxpool3d_k3s2p1_vjp(y, g)
+    want = K.maxpool3d_k3s2p1_vjp_ref(y, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert float(want.abs().sum()) > 0
+
+
+def test_maxpool_vjp_negative_input_and_all_ties(dev):
+    """All-negative input (padding must never win a window) and a constant
+    input (every window a three-way tie on each axis)."""
+    for y in (-1.0 - torch.rand((1, 5, 6, 7, 8), device=dev),
+              torch.ones((1, 6, 5, 9, 4), device=dev)):
+        g = torch.randn((1, *((n - 1) // 2 + 1 for n in y.shape[1:4]),
+                         y.shape[4]), device=dev)
+        got = K.maxpool3d_k3s2p1_vjp(y, g)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K.maxpool3d_k3s2p1_vjp_ref(y, g))
+
+
+def test_stem_conv_diff_on_the_gpu(dev):
+    """The stem conv's matrix-product backward against the library's conv
+    backward on the GPU, NCDHW and channels-last cotangents, and two calls
+    bit for bit under deterministic algorithms."""
+    from hiddenpose_tpu_torch.ops.stem_vjp import stem_conv_diff
+
+    rng = np.random.RandomState(11)
+    x = _t(rng, (2, 1, 9, 12, 16), dev).requires_grad_()
+    w = _t(rng, (16, 1, 7, 7, 7), dev, 0.05).requires_grad_()
+    g = _t(rng, (2, 16, 9, 12, 16), dev)
+    want = torch.autograd.grad(F.conv3d(x, w, padding=3), (x, w), g)
+    for ct in (g, g.contiguous(memory_format=torch.channels_last_3d)):
+        got = torch.autograd.grad(stem_conv_diff(x, w), (x, w), ct)
+        again = torch.autograd.grad(stem_conv_diff(x, w), (x, w), ct)
+        torch.cuda.synchronize()
+        for a, a2, b in zip(got, again, want):
+            assert torch.equal(a, a2)
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
 @pytest.mark.parametrize("kind", ["random", "ties", "all_ties"])
 @pytest.mark.parametrize("shape", [(2, 4, 8, 10, 12), (1, 3, 5, 7, 9)])
 def test_max_pool2_bwd(dev, shape, kind):

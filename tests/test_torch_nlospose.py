@@ -176,3 +176,85 @@ def test_unsupported_backbone_raises():
     cfg = dataclasses.replace(Config().tiny(16).model, backbone="posenet2d")
     with pytest.raises(NotImplementedError):
         build_nlospose(cfg, device="cpu")
+
+
+# ------------------------------------------------- the UNet's output conv
+
+def _out_conv_case(seed, cin, cout, shape):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(2, cin, *shape).astype(np.float32)
+    kernel = rng.randn(1, 1, 1, cin, cout).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    ct = rng.randn(2, cout, *shape).astype(np.float32)
+    return x, kernel, bias, ct
+
+
+@pytest.mark.parametrize("cin,cout,shape", [(4, 1, (4, 5, 6)),
+                                            (3, 2, (2, 3, 4))])
+def test_out_conv_matches_the_jax_einsum_and_the_library_conv(cin, cout,
+                                                              shape):
+    """``OutConv`` (a channel contraction in plain tensor ops) against the
+    JAX package's ``OutConv1x1`` on bridged weights, value and the
+    gradients of input, weight and bias, and against the ``nn.Conv3d`` it
+    holds its parameters in.  f32 sums of ``cin`` terms (forward, dx) or
+    of every voxel (dw, db): 1e-6 of each result's max."""
+    from hiddenpose_tpu.models.unet3d import OutConv1x1
+    from hiddenpose_tpu_torch.models.unet3d import OutConv
+
+    x, kernel, bias, ct = _out_conv_case(cin + cout, cin, cout, shape)
+    ref = OutConv1x1(features=cout)
+    params = {"params": {"kernel": jnp.asarray(kernel),
+                         "bias": jnp.asarray(bias)}}
+    y_w, pull = jax.vjp(lambda p, xp: ref.apply(p, xp), params,
+                        jnp.asarray(x))
+    dp_w, dx_w = pull(jnp.asarray(ct))
+
+    out = OutConv(cin, cout)
+    assert list(out.state_dict()) == ["conv.weight", "conv.bias"]
+    assert out.conv.weight.shape == (cout, cin, 1, 1, 1)
+    # the bridge's layout: (1, 1, 1, C_in, C_out) -> (C_out, C_in, 1, 1, 1)
+    out.load_state_dict({
+        "conv.weight": torch.from_numpy(kernel).permute(4, 3, 0, 1, 2),
+        "conv.bias": torch.from_numpy(bias)})
+    xt = torch.from_numpy(x).requires_grad_()
+    y = out(xt)
+    y.backward(torch.from_numpy(ct))
+    got = (y.detach(), xt.grad, out.conv.weight.grad, out.conv.bias.grad)
+
+    want = (np.asarray(y_w), np.asarray(dx_w),
+            np.asarray(dp_w["params"]["kernel"]).transpose(4, 3, 0, 1, 2),
+            np.asarray(dp_w["params"]["bias"]))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-6 * np.abs(b).max())
+
+    xt.grad = None
+    out.zero_grad()
+    y2 = out.conv(xt)
+    y2.backward(torch.from_numpy(ct))
+    lib = (y2.detach(), xt.grad, out.conv.weight.grad, out.conv.bias.grad)
+    for a, b in zip(got, lib):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+def test_out_conv_backward_does_not_enter_the_conv_backward():
+    """No ``ConvolutionBackward`` node hangs off ``OutConv``'s output."""
+    from hiddenpose_tpu_torch.models.unet3d import OutConv
+
+    y = OutConv(4, 1)(torch.randn(1, 4, 2, 2, 2, requires_grad=True))
+    seen, todo = set(), [y.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        todo += [f for f, _ in fn.next_functions]
+    names = {type(f).__name__ for f in seen}
+    assert not any("Convolution" in n for n in names), names
+
+
+def test_unet_state_dict_keeps_the_output_conv_names():
+    from hiddenpose_tpu_torch.models.unet3d import UNet3d
+
+    keys = [k for k in UNet3d(1, 4).state_dict() if k.startswith("out.")]
+    assert keys == ["out.conv.weight", "out.conv.bias"]

@@ -370,3 +370,67 @@ def test_every_kernel_is_listed():
         assert replaces.startswith(
             "scripts/tpu_diag_stem_paired.py:" if name in K.PROBES
             else "hiddenpose_tpu/ops/pallas/"), name
+
+
+# ------------------------------------- K7 and K6: the kernels' bookkeeping
+
+@pytest.mark.parametrize("tile", [(16, 16), (4, 6), (2, 2)])
+@pytest.mark.parametrize("shape", [(2, 5, 6, 7, 4), (1, 9, 17, 33, 4),
+                                   (1, 4, 18, 20, 64), (1, 7, 3, 5, 64)])
+def test_stem_pool_vjp_tiled_bookkeeping_is_exact(shape, tile):
+    """K7's tiles, halos (one voxel before, two after, -inf outside) and
+    window indices, in plain PyTorch, against the autograd of the chain:
+    odd extents, tiles that do not divide them, C = 4 and 64, post-ReLU
+    ties.  Exact: the same powers-of-two weights and two-term sums."""
+    from hiddenpose_tpu_torch.ops.kernels import phase_pool
+
+    rng = np.random.RandomState(sum(shape))
+    y = _t(_post_relu(rng, shape))
+    b, d, h, w, c = shape
+    g = _t(_np(rng, b, *(phase_pool.pooled_extent(n) for n in (d, h, w)), c))
+    got = phase_pool.maxpool3d_k3s2p1_vjp_tiled_ref(y, g, *tile)
+    want = phase_pool.maxpool3d_k3s2p1_vjp_ref(y, g)
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert float(want.abs().sum()) > 0
+
+
+WGRAD_SHAPES = [  # (b, cin, cout, d, h, w)
+    (2, 1, 1, 5, 6, 7), (2, 3, 5, 5, 6, 7), (1, 4, 4, 9, 17, 40),
+    (2, 8, 4, 4, 8, 16), (1, 32, 32, 8, 8, 8), (1, 2, 1, 4, 9, 33)]
+
+
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
+def test_wgrad_plan_cuts_every_voxel_into_exactly_one_run(shape):
+    """K6's plan: tile widths, channel groups and block columns the kernel
+    takes, no more columns than tiles, and the columns' tile runs cover
+    each voxel once."""
+    b, cin, cout, d, h, w = shape
+    plan = conv3p_mod.wgrad_plan(b, cin, cout, d, h, w)
+    assert plan["tw"] in (8, 16, 32) and plan["cib"] in (1, 2, 4)
+    assert plan["cot"] == (1 if cout == 1 else 4)
+    assert plan["cib"] <= max(cin, 1)
+    ntiles = int(np.prod(plan["tiles"]))
+    assert 1 <= plan["chunks"] <= ntiles
+    groups = -(-cin // plan["cib"]) * -(-cout // plan["cot"])
+    assert plan["chunks"] * groups <= max(conv3p_mod.WGRAD_BLOCKS, groups)
+    masks = conv3p_mod.wgrad_chunk_masks(plan, (b, d, h, w))
+    assert len(masks) == plan["chunks"]
+    assert torch.equal(sum(masks), torch.ones(b, 1, d, h, w))
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("shape", WGRAD_SHAPES[:4])
+def test_wgrad_fixed_order_fold_matches_the_plain_version(shape, pad_mode):
+    """K6's two passes in plain PyTorch (a partial row per block column
+    over its run of tiles, then the columns summed in order) against the
+    one-call plain version: f32 sums in another order, 1e-5 of the max;
+    and two folds are bit-identical."""
+    b, cin, cout, d, h, w = shape
+    rng = np.random.RandomState(sum(shape))
+    x, dz = _t(_np(rng, b, cin, d, h, w)), _t(_np(rng, b, cout, d, h, w))
+    got = conv3p_mod.conv3_planes_wgrad_fold_ref(x, dz, pad_mode=pad_mode)
+    again = conv3p_mod.conv3_planes_wgrad_fold_ref(x, dz, pad_mode=pad_mode)
+    want = conv3p_mod.conv3_planes_wgrad_ref(x, dz, pad_mode=pad_mode)
+    for a, a2, w_ in zip(got, again, want):
+        assert torch.equal(a, a2)
+        assert float((a - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
