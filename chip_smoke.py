@@ -16,7 +16,12 @@ lines:
    tensor cores) also against a float64 conv of the same inputs, where the
    kernel's error may be at most twice the plain f32 version's, and at a
    ragged shape the serving path never gives them; K9's f32 rows (three
-   TF32 passes at head dim 32) likewise against a float64 attention;
+   TF32 passes at head dim 32) likewise against a float64 attention; every
+   K1 and K5 row of the path twice for bit-identical results and beside
+   its library call (medians of 20 readings each, taken in turns), where
+   it may take at most 1.1 times as long, and K1 and K5 at ragged volumes
+   off the path (zero and edge padding, channel counts that fill no
+   channel block, the pre-affine before the zero padding);
 4. serve: ``InferenceServer(t128_config(), batch_size=2, dtype="float32",
    device="cuda:0")`` answers 9 synthetic captures (a padded tail batch),
    with every serving kernel's launch count as expected afterwards, and a
@@ -154,6 +159,11 @@ SFORMER_BF16_KERNELS_TOL = 1e-2
 SFORMER_BF16_TOL = 3e-2
 # per layer the joint-token read and the grouped attention
 SFORMER_LAUNCHES_PER_FORWARD = 16
+# Phase 3: a K1 or K5 call of the path may take this many times its library
+# call's time (``F.conv3d`` on a padded copy, ``conv3d_input``), medians of
+# LIBRARY_READINGS readings each, taken in turns
+CONV3P_SLOWER = 1.1
+LIBRARY_READINGS = 20
 # Phase 8: the dot probe's launch may take this many times torch.matmul's
 PROBE_DOT_SLOWER = 1.1
 DOT_PROBE_TOL = 1e-5
@@ -257,7 +267,7 @@ def nbytes(*tensors):
 
 def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
             rtol_atol=None, library_fn=None, moved=0, ops=(), tag="3 kernels",
-            f64_fn=None):
+            f64_fn=None, repeats=False, slower=None):
     """Error and times (plain, kernel, kernel, plain) of one call shape.
     The kernel's result must be exact (``exact``), within ``atol``, within
     ``rtol_atol`` element by element, or within CONV_TOL of the plain
@@ -267,11 +277,16 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
     the same function in float64 (a tuple for a tuple result): the kernel's
     max error against it, over all parts, may be at most F64_ERR_FACTOR
     times the plain version's (or one f32 ulp of the plain result's
-    max)."""
+    max).  ``repeats``: a second call must give the same bits.  ``slower``:
+    the kernel's time may be at most this many times ``library_fn``'s,
+    medians of LIBRARY_READINGS readings of ``iters`` launches each, taken
+    in turns."""
     with deterministic(warn_only=True):
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
+        if repeats and not torch.equal(got, kernel_fn()):
+            raise RuntimeError(f"{name}: two calls differ")
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     pairs = [(g_.float(), w_.float()) for g_, w_ in pairs]
     err = max((g - w).abs().max().item() for g, w in pairs)
@@ -323,6 +338,21 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
             f"{F64_ERR_FACTOR:g} x plain)")
     if not ok:
         raise RuntimeError(f"{name}: kernel disagrees with plain version")
+    if slower is not None:
+        reads = {"kernel": [], "library": []}
+        for _ in range(LIBRARY_READINGS):
+            reads["kernel"].append(cuda_ms(kernel_fn, iters))
+            reads["library"].append(cuda_ms(library_fn, iters))
+        res["ms_median"] = float(np.median(reads["kernel"]))
+        res["library_ms_median"] = float(np.median(reads["library"]))
+        log(f"[{tag}] {name}: medians of {LIBRARY_READINGS}: kernel "
+            f"{res['ms_median']:.4f} ms, library {res['library_ms_median']:.4f}"
+            f" ms (limit {slower} x)")
+        if res["ms_median"] > slower * res["library_ms_median"]:
+            raise RuntimeError(
+                f"{name}: the kernel takes {res['ms_median']:.4f} ms, more "
+                f"than {slower} x its library call's "
+                f"{res['library_ms_median']:.4f} ms")
     return res
 
 
@@ -354,6 +384,16 @@ K1_SHAPES = [
     (4, 4, 64, "zero", "none", False, 1, True, True),
     (8, 4, 128, "zero", "none", False, 1, True, True),    # dec4
 ]
+# K1 and K5 off the path, one capture: (c_in, c_out, (D, H, W), pad, the
+# pre-affine's ReLU or None), with residual and leaky: extents that no tile
+# divides, channel counts that fill no channel block.  The pre-affine row
+# holds K1 to the plain version over the whole volume: the affine precedes
+# the zero padding.
+K1_RAGGED = [(cin, cout, dhw, pad, None)
+             for dhw in ((5, 6, 7), (9, 17, 33))
+             for pad in ("zero", "edge")
+             for cin, cout in ((1, 1), (3, 5), (20, 12))]
+K1_RAGGED.append((3, 5, (9, 17, 33), "zero", True))
 # K4 call shapes: (width, extent, stride-1 blocks per forward); in a train
 # step each block also runs K4-dx once.
 K4_SHAPES = [(64, 64, 3), (128, 32, 3), (256, 16, 5)]
@@ -387,41 +427,66 @@ def phase_kernels(dev):
         return torch.randn(shape, generator=g, device=dev) * scale
 
     rows = {name: [] for name in K.KERNELS}
-    for cin, cout, n, pad, act, res, count, dx, has_bias in K1_SHAPES:
-        x = randn(B, cin, n, n, n)
+    # the path's rows at batch B, then K1 and K5 alone at ragged volumes off
+    # the path (one capture; count 0)
+    conv3p_cases = [(cin, cout, (n, n, n), pad, act, res, count, dx, has_bias,
+                     None) for cin, cout, n, pad, act, res, count, dx,
+                    has_bias in K1_SHAPES]
+    conv3p_cases += [(cin, cout, dhw, pad, "leaky", True, 0, True, True, pre)
+                     for cin, cout, dhw, pad, pre in K1_RAGGED]
+    for (cin, cout, dhw, pad, act, res, count, dx, has_bias,
+         pre) in conv3p_cases:
+        on_path = count > 0
+        vol = (B if on_path else 1, *dhw)
+        at = (f"@{dhw[0]}^3" if on_path else "@" + "x".join(map(str, dhw)))
+        x = randn(vol[0], cin, *dhw)
         k = randn(3, 3, 3, cin, cout, scale=(27 * cin) ** -0.5)
         bias = randn(cout, scale=0.1)
-        r = randn(B, cout, n, n, n) if res else None
-        out_bytes = 4 * B * cout * n ** 3
-        flop = [(2 * 27 * cin * cout * B * n ** 3, "f32")]
+        r = randn(vol[0], cout, *dhw) if res else None
+        nvox = vol[0] * dhw[0] * dhw[1] * dhw[2]
+        out_bytes = 4 * cout * nvox
+        flop = [(2 * 27 * cin * cout * nvox, "f32")]
         # the library's operands: a padded copy of x, OIDHW weights
         xp = F.pad(x, (1,) * 6, mode="replicate" if pad == "edge"
                    else "constant")
         w = k.permute(4, 3, 0, 1, 2).contiguous()
         kw = dict(act=act, pad_mode=pad)
+        pre_args = ()
+        if pre is not None:  # the pre-affine (+ ReLU), before the padding
+            kw["pre_relu"] = pre
+            pre_args = (torch.rand(cin, generator=g, device=dev) + 0.5,
+                        randn(cin, scale=0.5) + 0.5)
+        slower = CONV3P_SLOWER if on_path else None
         row = compare(
-            f"conv3_planes {cin}->{cout} @{n}^3 {pad} {act}"
-            f"{' +residual' if res else ''}",
-            lambda: K.conv3_planes(x, k, bias, r, **kw),
-            lambda: K.conv3_planes_ref(x, k, bias, r, **kw), iters=20,
+            f"conv3_planes {cin}->{cout} {at} {pad} {act}"
+            f"{' +residual' if res else ''}"
+            f"{'' if pre is None else ' pre-affine+relu'}",
+            lambda: K.conv3_planes(x, k, bias, r, *pre_args, **kw),
+            lambda: K.conv3_planes_ref(x, k, bias, r, *pre_args, **kw),
+            iters=20 if on_path else 5,
             library_fn=lambda: F.conv3d(xp, w, bias),
-            moved=nbytes(x, k, bias, r) + out_bytes, ops=flop)
+            moved=nbytes(x, k, bias, r) + out_bytes, ops=flop, repeats=True,
+            slower=slower)
         row["per_forward"] = row["per_step"] = count
         rows["conv3_planes"].append(row)
 
-        dz = randn(B, cout, n, n, n)
+        dz = randn(vol[0], cout, *dhw)
         if dx:
             row = compare(
-                f"conv3_planes_adjoint {cout}->{cin} @{n}^3 {pad}",
+                f"conv3_planes_adjoint {cout}->{cin} {at} {pad}",
                 lambda: K.conv3_planes_adjoint(dz, k, pad_mode=pad),
                 lambda: K.conv3_planes_adjoint_ref(dz, k, pad_mode=pad),
-                iters=10,
+                iters=10 if on_path else 5,
                 # zero padding's adjoint; edge padding also folds the halo
-                # onto the boundary voxels, which no one call does
+                # onto the boundary voxels, which no one call does: the
+                # call without the fold is the yardstick there too
                 library_fn=lambda: conv3d_input(x.shape, w, dz, padding=1),
-                moved=nbytes(dz, k, x), ops=flop)
+                moved=nbytes(dz, k, x), ops=flop, repeats=True, slower=slower)
             row["per_step"] = count
             rows["conv3_planes_adjoint"].append(row)
+        if not on_path:
+            continue
+        n = dhw[0]
         kw = dict(pad_mode=pad, has_bias=has_bias)
 
         def wgrad64():

@@ -8,147 +8,56 @@
 //   pad    = zero (torch SAME) or edge (ReplicationPad3d)
 //   act    = none / relu / leaky(0.2), applied after the residual add.
 //
-// What bounds it on the card: at this model's 1-64 channels the stencil does
-// 27 * C_in FMAs per output per C_out, far below the ratio of the H100's
-// fp32 peak to its memory bandwidth (about 20 FLOP/byte by the data sheet),
-// so it is bound by memory traffic.
-// Design: one block owns a 32 (W) x 8 (H) tile of one output plane for up to
-// 8 output channels; for each input channel it stages the 3 x 10 x 34 halo
-// tile (with the pre-affine and the padding already applied) and that
-// channel's 27 x 8 weights in shared memory, so every input element is read
-// from device memory about 3 times (once per depth tap) instead of 27.
+// What bounds it on the card: with one input and one output channel the
+// bytes (a 128^3 batch-2 call moves 34 MB); from four channels on the
+// 27 * C_in * C_out fp32 FMAs a voxel, which outweigh the bytes at the
+// card's 20 FLOP a byte.  At 1-64 channels a K of 27 * C_in gives the
+// tensor cores nothing that a 3xTF32 split would not eat, and plain FMAs
+// keep the sums exact f32.
+// Design: the tile walk of conv3p_tile.cuh (each input plane staged once
+// by asynchronous copies, a register tile of R rows x CB output channels x
+// three planes in flight, channel blocks of 1, 4 or 8 that fit C_out, the
+// input channels of small wide volumes split over thread groups and folded
+// in a fixed order).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "conv3p_tile.cuh"
 
-namespace {
+namespace conv3p_tile {
+// the instances without the edge fold, which conv3p_adjoint.cu also calls
+template cudaError_t dispatch<false>(int, int, int, const Args&,
+                                     cudaStream_t);
+}  // namespace conv3p_tile
 
-constexpr int TW = 32;      // output tile width  (threadIdx.x)
-constexpr int TH = 8;       // output tile height (threadIdx.y)
-constexpr int CO_BLK = 8;   // output channels per block
-constexpr int SW = TW + 2;
-constexpr int SH = TH + 2;
-constexpr int NTHREADS = TW * TH;
-
-__global__ void __launch_bounds__(NTHREADS)
-conv3p_kernel(const float* __restrict__ x, const float* __restrict__ k,
-              const float* __restrict__ bias,
-              const float* __restrict__ residual,
-              const float* __restrict__ pre_scale,
-              const float* __restrict__ pre_shift,
-              float* __restrict__ out,
-              int cin, int cout, int D, int H, int W,
-              int edge, int act, int pre_mode, int tiles_w) {
-  __shared__ float tile[3][SH][SW];
-  __shared__ float wk[27][CO_BLK];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * TW + tx;
-  const int h0 = (blockIdx.x / tiles_w) * TH;
-  const int w0 = (blockIdx.x % tiles_w) * TW;
-  const int d = blockIdx.y;
-  const int n_cog = (cout + CO_BLK - 1) / CO_BLK;
-  const int b = blockIdx.z / n_cog;
-  const int co0 = (blockIdx.z % n_cog) * CO_BLK;
-  const int64_t plane = (int64_t)H * W;
-
-  float acc[CO_BLK];
-#pragma unroll
-  for (int j = 0; j < CO_BLK; ++j) acc[j] = 0.f;
-
-  for (int ci = 0; ci < cin; ++ci) {
-    const float* xc = x + ((int64_t)b * cin + ci) * D * plane;
-    float sc = 1.f, sh = 0.f;
-    if (pre_mode) {
-      sc = pre_scale[ci];
-      sh = pre_shift[ci];
-    }
-    for (int i = tid; i < 3 * SH * SW; i += NTHREADS) {
-      const int dz = i / (SH * SW);
-      const int r = i - dz * (SH * SW);
-      const int yy = r / SW;
-      const int xx = r - yy * SW;
-      int gd = d - 1 + dz, gh = h0 - 1 + yy, gw = w0 - 1 + xx;
-      bool inside = gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 &&
-                    gw < W;
-      if (edge) {
-        gd = min(max(gd, 0), D - 1);
-        gh = min(max(gh, 0), H - 1);
-        gw = min(max(gw, 0), W - 1);
-        inside = true;
-      }
-      float v = 0.f;
-      if (inside) {
-        v = xc[gd * plane + (int64_t)gh * W + gw];
-        if (pre_mode) {
-          v = fmaf(v, sc, sh);
-          if (pre_mode == 2) v = fmaxf(v, 0.f);
-        }
-      }
-      tile[dz][yy][xx] = v;
-    }
-    for (int i = tid; i < 27 * CO_BLK; i += NTHREADS) {
-      const int t = i / CO_BLK;
-      const int j = i - t * CO_BLK;
-      const int co = co0 + j;
-      wk[t][j] = co < cout ? k[((int64_t)t * cin + ci) * cout + co] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kd = 0; kd < 3; ++kd) {
-#pragma unroll
-      for (int kh = 0; kh < 3; ++kh) {
-#pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          const float v = tile[kd][ty + kh][tx + kw];
-          const int t = (kd * 3 + kh) * 3 + kw;
-#pragma unroll
-          for (int j = 0; j < CO_BLK; ++j) acc[j] = fmaf(v, wk[t][j], acc[j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int h = h0 + ty;
-  const int w = w0 + tx;
-  if (h >= H || w >= W) return;
-#pragma unroll
-  for (int j = 0; j < CO_BLK; ++j) {
-    const int co = co0 + j;
-    if (co >= cout) break;
-    const int64_t o =
-        (((int64_t)b * cout + co) * D + d) * plane + (int64_t)h * W + w;
-    float v = acc[j];
-    if (bias) v += bias[co];
-    if (residual) v += residual[o];
-    if (act == 1) {
-      v = fmaxf(v, 0.f);
-    } else if (act == 2) {
-      v = v >= 0.f ? v : 0.2f * v;
-    }
-    out[o] = v;
-  }
-}
-
-}  // namespace
-
-// pad_mode: 0 zero, 1 edge.  act: 0 none, 1 relu, 2 leaky(0.2).
-// pre_mode: 0 no pre-affine, 1 affine, 2 affine + relu.
-// bias / residual / pre_scale / pre_shift may be null.
+// x (B, C_in, D, H, W), k (3, 3, 3, C_in, C_out), out (B, C_out, D, H, W);
+// bias / residual / pre_scale / pre_shift may be null.  The integers come
+// as one array, p = {B, C_in, C_out, D, H, W, pad_mode, act, pre_mode, tw,
+// cb, r, thr, splits, chunk, cg, wres}: pad_mode 0 zero, 1 edge; act 0
+// none, 1 relu, 2 leaky(0.2); pre_mode 0 no pre-affine, 1 affine, 2 affine
+// + relu; then the plan of ops/kernels/conv3p.py::tile_plan: tw 32 or 16,
+// the tile's width; cb output channels a block and r rows a thread (one of
+// the forms conv3p_tile::dispatch lists); thr thread rows (the tile is
+// thr * r rows); splits thread groups over the input channels; chunk
+// planes of D a block; cg input channels staged at a time (a multiple of
+// splits, or C_in); wres whether the taps of all input channels stay in
+// shared memory.
 extern "C" int hp_conv3p_fwd(const float* x, const float* k, const float* bias,
                              const float* residual, const float* pre_scale,
-                             const float* pre_shift, float* out, int B, int cin,
-                             int cout, int D, int H, int W, int pad_mode,
-                             int act, int pre_mode, void* stream) {
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_h = (H + TH - 1) / TH;
-  const int n_cog = (cout + CO_BLK - 1) / CO_BLK;
-  dim3 grid(tiles_w * tiles_h, D, B * n_cog);
-  dim3 block(TW, TH);
-  conv3p_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      x, k, bias, residual, pre_scale, pre_shift, out, cin, cout, D, H, W,
-      pad_mode, act, pre_mode, tiles_w);
-  return (int)cudaGetLastError();
+                             const float* pre_shift, float* out, const int* p,
+                             void* stream) {
+  conv3p_tile::Args a;
+  a.src = x; a.k = k; a.bias = bias; a.residual = residual;
+  a.pre_scale = pre_scale; a.pre_shift = pre_shift; a.out = out;
+  a.B = p[0]; a.cs = p[1]; a.cd = p[2]; a.D = p[3]; a.H = p[4]; a.W = p[5];
+  a.k_sc = a.cd; a.k_sd = 1; a.flip = 0; a.clamp = p[6];
+  a.act = p[7]; a.pre_mode = p[8];
+  const int tw = p[9], cb = p[10], r = p[11];
+  a.thr = p[12]; a.splits = p[13]; a.chunk = p[14]; a.cg = p[15];
+  a.wres = p[16];
+  // 16-byte copies: rows of x, and runs of four output channels of k,
+  // start 16-byte aligned
+  a.vec = a.W % 4 == 0 && (uintptr_t)x % 16 == 0;
+  a.vecw = cb >= 4 && a.cd % 4 == 0 && (uintptr_t)k % 16 == 0;
+  a.vect = 0;
+  return (int)conv3p_tile::dispatch<false>(cb, r, tw, a,
+                                           (cudaStream_t)stream);
 }

@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int TD = 4;
@@ -51,34 +53,6 @@ constexpr int XD = TD + 2;
 constexpr int XH = TH + 2;
 constexpr int NWARP = 4;
 constexpr int NTHREADS = 32 * NWARP;
-
-// 4 bytes from global to shared memory, or 4 zero bytes (`src` must still
-// be an address inside the tensor).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool copy) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(copy ? 4 : 0)
-               : "memory");
-}
-
-// 16 bytes (both addresses 16-byte aligned), or 16 zero bytes.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool copy) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(copy ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <int COT, int TW>
 struct Shape {

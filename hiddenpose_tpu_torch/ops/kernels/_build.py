@@ -4,8 +4,9 @@ The sources have a plain C interface, so ``nvcc`` compiles them straight
 into one shared library (no PyTorch headers, which would cost minutes per
 build) and :mod:`ctypes` loads it.  The library is built at first use, for
 ``sm_90a``, into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), under a name that hashes the sources and flags, so an edit
-to any source forces a rebuild and a stale library is never loaded.
+``.gitignore``), under a name that hashes the sources, the headers they
+share and the flags, so an edit to any of them forces a rebuild and a stale
+library is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a host without ``nvcc`` or a GPU.
@@ -14,6 +15,7 @@ package on a host without ``nvcc`` or a GPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -30,6 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("conv3p.cu", "stem_conv.cu", "phase_pool.cu", "conv3mxu.cu",
            "conv3p_adjoint.cu", "conv3p_wgrad.cu", "phase_pool_vjp.cu",
            "pool2p.cu", "attn.cu", "diag_probes.cu")
+# headers the sources include: hashed with them, so an edit to one rebuilds
+HEADERS = ("cp_async.cuh", "conv3p_tile.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -41,12 +45,12 @@ _L = ctypes.c_longlong
 # Every entry point returns its cudaError_t as an int; pointers and the
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
-    "hp_conv3p_fwd": [_P] * 7 + [_I] * 9 + [_P],
+    "hp_conv3p_fwd": [_P] * 8 + [_P],
     "hp_stem_conv_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "hp_maxpool3d_k3s2p1": [_P] * 2 + [_I] * 8 + [_P],
     "hp_conv3_mxu_prep": [_P] * 2 + [_I] * 3 + [_P],
     "hp_conv3_mxu_fwd": [_P] * 5 + [_I] * 7 + [_P],
-    "hp_conv3p_adjoint": [_P] * 3 + [_I] * 7 + [_P],
+    "hp_conv3p_adjoint": [_P] * 4 + [_P],
     "hp_conv3p_wgrad": [_P] * 5 + [_I] * 11 + [_P],
     "hp_maxpool3d_k3s2p1_vjp": [_P] * 3 + [_I] * 8 + [_P],
     "hp_maxpool2_bwd": [_P] * 3 + [_I] * 7 + [_P],
@@ -59,6 +63,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_entries = {}       # entry points by name, resolved once
 build_log = ""      # nvcc's output (-Xptxas=-v: registers, spills, smem)
 build_seconds = 0.0
 
@@ -77,7 +82,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -134,12 +139,39 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call one entry point on the current stream; raise on a launch error."""
-    fn = getattr(library(), name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+def reset() -> None:
+    """Forget the loaded library, so that the next launch builds and loads
+    the sources as they are now (a tuning sweep edits them in place)."""
+    global _lib
+    with _lock:
+        _lib = None
+        _entries.clear()
+
+
+def launch(name: str, *args, device=None) -> None:
+    """Call one entry point on the current stream; raise on a launch error.
+    ``device`` (the tensors' ``torch.device``) lets the stream be looked up
+    without building a ``torch.cuda.Stream``, which costs more host time
+    than the rest of a small kernel's call."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(), name)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if device is not None and device.index is not None and raw is not None:
+        stream = raw(device.index)
+    else:
+        stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def int_args(*values: int):
+    """A C ``int`` array of ``values``, built once per distinct tuple: an
+    entry point that takes its shape and plan as one ``const int*`` spares
+    the per-call conversion of every integer."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def ptr(t) -> int | None:

@@ -3,9 +3,13 @@
 Replaces ``hiddenpose_tpu/ops/pallas/conv3p.py::conv3_planes`` (the Pallas
 bodies ``_conv3p_kernel`` / ``_conv3p_kernel_db``), with the same argument
 order, the same (B, C, D, H, W) planes layout (which is PyTorch's NCDHW)
-and a DHWIO kernel.  The CUDA source is ``csrc/conv3p.cu``; its header says
-what bounds it on the card (memory traffic, at these 1-64 channels) and how
-the shared-memory halo tile answers that.
+and a DHWIO kernel.  The CUDA source is ``csrc/conv3p.cu``, a front of the
+tile walk in ``csrc/conv3p_tile.cuh``, whose header says how a block walks
+down D with each input plane staged once and what bounds it on the card
+(bytes at one channel each way, fp32 FMAs from four channels on).
+:func:`tile_plan` cuts a call into blocks; :func:`conv3_planes_tiled_ref`
+and :func:`conv3_planes_adjoint_tiled_ref` are that walk in plain PyTorch,
+for the CPU tests.
 
 The TPU kernel's eligibility limits (``cin * cout <= 64``, ``W <= 128``,
 ``H % 8 == 0``) were limits of its compiler, not of the contract: this
@@ -13,11 +17,12 @@ kernel takes any shape, so every FeatureExtraction and UNet 3^3 conv uses
 it.
 
 Its gradient (:class:`Conv3Planes`, the port of ``_conv3p_diff``) runs two
-more kernels: K5 (:func:`conv3_planes_adjoint`, ``csrc/conv3p_adjoint.cu``)
-for dx and K6 (:func:`conv3_planes_wgrad`, ``csrc/conv3p_wgrad.cu``) for
-the kernel and bias gradients.  Their TPU counterparts take
-``cin * cout <= 64`` and ``<= 32`` and leave the rest to XLA; both Hopper
-kernels take every shape of the path.
+more kernels: K5 (:func:`conv3_planes_adjoint`, ``csrc/conv3p_adjoint.cu``:
+the same tile walk on flipped, swapped taps, with the edge padding's fold
+onto the faces) for dx and K6 (:func:`conv3_planes_wgrad`,
+``csrc/conv3p_wgrad.cu``) for the kernel and bias gradients.  Their TPU
+counterparts take ``cin * cout <= 64`` and ``<= 32`` and leave the rest to
+XLA; both Hopper kernels take every shape of the path.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (``*_ref``); on
 a CUDA tensor it launches the kernel or raises.  A wrapper also raises when
@@ -26,6 +31,9 @@ an input requires grad and grad mode is on: under autograd only
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +71,265 @@ def conv3_planes_ref(x, kernel, bias=None, residual=None, pre_scale=None,
     if residual is not None:
         out = out + residual
     return _activation(out, act)
+
+
+# The tile walk of K1 and K5 (``csrc/conv3p_tile.cuh``).  A block is cut
+# down along D, then in H, until the call has this many blocks: the first
+# count while a block keeps at least TILE_LONG_CHUNK planes (a short run
+# re-reads its two halo planes more often), the second at any cost.
+TILE_BLOCKS_LONG = 264      # two a multiprocessor of the H100
+TILE_LONG_CHUNK = 2
+TILE_BLOCKS = 128
+TILE_POSITIONS = 128         # columns x thread rows of a tile, at most
+TILE_SMS = 132               # multiprocessors of the H100
+TILE_SM_THREADS = 512        # threads of 128 registers one of them holds
+TILE_MAX_THREADS = 512       # of a block
+TILE_SLOT_BYTES = 64 * 1024  # one staged unit, at most
+TILE_TAPS_BYTES = 64 * 1024  # taps of all source channels that may stay
+TILE_MAX_SMEM = 232448       # bytes a block may use on the H100
+# (channels a block, rows a thread) a conv to more than one channel may
+# take (27 x rows x channels sums in three slots stay in registers): the
+# one that pads the channels least, the first on a tie
+TILE_FORMS = ((8, 2), (4, 4))
+_ROW_PITCH = {(32, 2): 40, (32, 4): 40, (16, 2): 24, (16, 4): 28}
+
+
+class TilePlan(NamedTuple):
+    """How one call of K1 or K5 is cut (see :func:`tile_plan`)."""
+    tw: int       # tile width: 32, or 16 where W is no wider
+    cb: int       # destination channels a block holds in registers
+    r: int        # rows of one column a thread owns
+    thr: int      # thread rows
+    splits: int   # thread groups the source channels are dealt to
+    chunk: int    # planes of D a block walks
+    cg: int       # source channels staged at a time
+    wres: int     # 1: the taps of all source channels stay resident
+
+    @property
+    def th(self):
+        return self.thr * self.r
+
+    @property
+    def threads(self):
+        return self.tw * self.thr * self.splits
+
+    def grid(self, b, dst, d, h, w):
+        """(H x W tiles, D chunks, B x channel groups)."""
+        return (-(-h // self.th) * -(-w // self.tw), -(-d // self.chunk),
+                b * -(-dst // self.cb))
+
+    def smem_bytes(self, src):
+        xplane = (self.th + 2) * _ROW_PITCH[self.tw, self.r]
+        resident = bool(self.wres)
+        taps = -(-(src if resident else self.cg) * 27 * self.cb // 4) * 4
+        slot = self.cg * xplane + (0 if resident else taps)
+        red = (self.splits * self.r * self.cb * self.tw * self.thr
+               if self.splits > 1 else 0)
+        return 4 * (3 * slot + (taps if resident else 0) + red)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(b, src, dst, d, h, w):
+    """The :class:`TilePlan` of a 3^3 stencil from ``src`` to ``dst``
+    channels over (b, d, h, w): K1 with (C_in, C_out), K5 with
+    (C_out, C_in).  The channel block is the one of ``TILE_FORMS`` that
+    pads ``dst`` least (1 for one channel); the tile is cut until the card
+    has blocks enough, and the source channels are split where the voxels
+    alone give too few threads."""
+    tw = 32 if w > 16 else 16
+    cb, r = (1, 4) if dst == 1 else min(
+        TILE_FORMS, key=lambda f: -(-dst // f[0]) * f[0])
+    # a one-channel block moves bytes, not FMAs: twice the rows
+    thr = min((2 if cb == 1 else 1) * TILE_POSITIONS // tw, -(-h // r))
+    chunk = d
+
+    def blocks():
+        return (b * -(-dst // cb) * -(-h // (thr * r)) * -(-w // tw)
+                * -(-d // chunk))
+
+    while blocks() < TILE_BLOCKS_LONG and chunk > TILE_LONG_CHUNK:
+        chunk = -(-chunk // 2)
+    while blocks() < TILE_BLOCKS:
+        if chunk > 2:
+            chunk = -(-chunk // 2)
+        elif thr > 1:
+            thr = -(-thr // 2)
+        elif chunk > 1:
+            chunk = 1
+        else:
+            break
+    # The source channels are dealt to 1, 2, 4, ... thread groups: the
+    # count that keeps most threads busy on a multiprocessor (as many
+    # blocks as their shared memory and 128 registers a thread let it
+    # hold, and the call gives it), the smaller on a tie.  A unit holds all
+    # source channels where they fit its share of the shared memory, else
+    # a multiple of the splits; the taps stay resident where all source
+    # channels' are few, or one unit holds them all.
+    per_sm = min(4, -(-blocks() // TILE_SMS))
+    xplane = 4 * (thr * r + 2) * _ROW_PITCH[tw, r]
+    best, busy = None, 0
+    splits = 1
+    while (splits <= min(src, r * cb)
+           and tw * thr * splits <= TILE_MAX_THREADS):
+        threads = tw * thr * splits
+        red = 4 * splits * r * cb * tw * thr if splits > 1 else 0
+        taps = 4 * 27 * cb  # a channel's
+        wres = src * taps <= TILE_TAPS_BYTES
+        slot = min(TILE_SLOT_BYTES,
+                   (TILE_MAX_SMEM // per_sm - red - wres * src * taps) // 3)
+        channel = xplane + (0 if wres else taps)  # bytes of a slot
+        cg = src
+        if src * channel > slot:
+            cg = max(1, slot // channel)
+            cg = -(-src // -(-src // cg))  # groups of equal size
+            cg = min(src, -(-cg // splits) * splits)
+        wres = wres or cg >= src
+        plan = TilePlan(tw, cb, r, thr, splits, chunk, cg, int(wres))
+        smem = plan.smem_bytes(src)
+        if smem <= TILE_MAX_SMEM:
+            held = min(per_sm, TILE_SM_THREADS // threads,
+                       TILE_MAX_SMEM // smem) * threads
+            if held > busy:
+                best, busy = plan, held
+        splits *= 2
+    if best is None:
+        raise ValueError(f"tile_plan: no plan for {(b, src, dst, d, h, w)} "
+                         "fits the shared memory")
+    return best
+
+
+def fold_taps(i, n):
+    """The extra taps of input ``i`` of ``n`` along one axis under K5's
+    edge fold (``conv3p_tile.cuh``): beside a forward conv's three (source
+    offset, staged tap) pairs (0, 0), (1, 1), (2, 2), whose member outside
+    the volume reads a zero, a voxel on a face takes its own position
+    (offset 1) with the outward tap: staged tap 2 at index 0, 0 at index
+    n - 1, both where n == 1.  Staged taps are the forward's, flipped."""
+    return [2] * (i == 0) + [0] * (i == n - 1)
+
+
+def tile_is_face(plan, h0, w0, h, w):
+    """Whether the tile at (h0, w0) touches a face of the (h, w) plane: K5
+    under edge padding adds the extra taps of :func:`fold_taps` there."""
+    return (h0 == 0 or h0 + plan.th >= h or w0 == 0 or w0 + plan.tw >= w)
+
+
+def _tile_walk_ref(src, taps, plan, *, clamp, fold):
+    """``conv3p_tile.cuh`` in plain PyTorch, block by block: ``src``
+    (B, cs, D, H, W), ``taps`` (3, 3, 3, cs, cd) as staged (K5: flipped and
+    swapped).  Source plane p adds tap plane kd into output plane
+    p + 1 - kd (under ``fold`` the planes 0 and D - 1 keep their outward
+    tap, and a tile on a face adds its extra taps); each split sums its own channels of every unit, and the splits'
+    sums are added in split order."""
+    b, cs, d, h, w = src.shape
+    cd = taps.shape[4]
+    sp = F.pad(src, (1,) * 6, mode="replicate" if clamp else "constant")
+    out = torch.zeros((b, cd, d, h, w), dtype=src.dtype)
+    th, tw = plan.th, plan.tw
+    # each split's channels, in the order it meets them: every
+    # ``splits``-th of every unit
+    chans = [[c for g in range(0, cs, plan.cg)
+              for c in range(g + s, min(g + plan.cg, cs), plan.splits)]
+             for s in range(plan.splits)]
+    sps = [sp[:, ch] for ch in chans]
+    for j0 in range(0, cd, plan.cb):
+        j1 = min(j0 + plan.cb, cd)
+        # per split, the three tap planes as one conv2d weight
+        wks = [taps[:, :, :, ch, j0:j1] for ch in chans]
+        w2d = [wk.permute(0, 4, 3, 1, 2).reshape(3 * (j1 - j0), len(ch), 3, 3)
+               for wk, ch in zip(wks, chans)]
+        for d0 in range(0, d, plan.chunk):
+            d1 = min(d0 + plan.chunk, d)
+            pa, pb = d0 - 1, d1
+            if not clamp:
+                pa, pb = max(pa, 0), min(pb, d - 1)
+            for h0 in range(0, h, th):
+                for w0 in range(0, w, tw):
+                    h1, w1 = min(h0 + th, h), min(w0 + tw, w)
+                    face = fold and tile_is_face(plan, h0, w0, h, w)
+                    acc = None
+                    for s in range(plan.splits):
+                        part = torch.zeros((b, j1 - j0, d1 - d0, h1 - h0,
+                                            w1 - w0), dtype=src.dtype)
+                        for p in range(pa, pb + 1):
+                            # padded coordinates: plane p is sp's p + 1
+                            reg = sps[s][:, :, p + 1, h0:h1 + 2, w0:w1 + 2]
+                            y = F.conv2d(reg, w2d[s]).unflatten(
+                                1, (3, j1 - j0))
+                            for kd in range(3):
+                                t = p + 1 - kd
+                                if fold and d0 <= p < d1:
+                                    t = min(max(t, 0), d - 1)
+                                if not d0 <= t < d1:
+                                    continue
+                                part[:, :, t - d0] += y[:, kd]
+                                if face:
+                                    part[:, :, t - d0] += _plane_extras(
+                                        reg, wks[s][kd], h0, w0, h, w)
+                        acc = part if acc is None else acc + part
+                    out[:, j0:j1, d0:d1, h0:h1, w0:w1] = acc
+    return out
+
+
+def _plane_extras(reg, wk, h0, w0, h, w):
+    """The extra taps of one tap plane on a face tile: own row x three
+    columns, three rows x own column, own voxel, each with the outward
+    tap(s) of :func:`fold_taps`.  ``reg`` (B, C, rows + 2, cols + 2),
+    ``wk`` (3, 3, C, cb)."""
+    rows, cols = reg.shape[2] - 2, reg.shape[3] - 2
+    out = torch.zeros((reg.shape[0], wk.shape[3], rows, cols),
+                      dtype=reg.dtype)
+    for i in range(rows):
+        for th in fold_taps(h0 + i, h):
+            for kw in range(3):
+                out[:, :, i] += torch.einsum(
+                    "bcw,cj->bjw", reg[:, :, i + 1, kw:kw + cols], wk[th, kw])
+            for j in range(cols):
+                for tw in fold_taps(w0 + j, w):
+                    out[:, :, i, j] += reg[:, :, i + 1, j + 1] @ wk[th, tw]
+    for j in range(cols):
+        for tw in fold_taps(w0 + j, w):
+            for kh in range(3):
+                out[:, :, :, j] += torch.einsum(
+                    "bch,cj->bjh", reg[:, :, kh:kh + rows, j + 1], wk[kh, tw])
+    return out
+
+
+def conv3_planes_tiled_ref(x, kernel, bias=None, residual=None,
+                           pre_scale=None, pre_shift=None, *, act="none",
+                           pad_mode="zero", pre_relu=None, plan=None):
+    """:func:`conv3_planes` by K1's tile walk in plain PyTorch (the blocks,
+    D runs, channel units and split fold of ``plan``, by default
+    :func:`tile_plan`'s), for the CPU tests."""
+    b, cin, d, h, w = x.shape
+    cout = kernel.shape[4]
+    plan = plan or tile_plan(b, cin, cout, d, h, w)
+    x = x.float()
+    if pre_relu is not None:  # before the padding
+        x = x * pre_scale[None, :, None, None, None] \
+            + pre_shift[None, :, None, None, None]
+        if pre_relu:
+            x = torch.relu(x)
+    out = _tile_walk_ref(x, kernel.float(), plan,
+                         clamp=pad_mode == "edge", fold=False)
+    if bias is not None:
+        out = out + bias[None, :, None, None, None]
+    if residual is not None:
+        out = out + residual
+    return _activation(out, act)
+
+
+def conv3_planes_adjoint_tiled_ref(dz, kernel, *, pad_mode="zero",
+                                   plan=None):
+    """:func:`conv3_planes_adjoint` by K5's tile walk in plain PyTorch:
+    K1's on flipped, swapped taps, with the fold of the clamped reads
+    under edge padding."""
+    b, cout, d, h, w = dz.shape
+    cin = kernel.shape[3]
+    plan = plan or tile_plan(b, cout, cin, d, h, w)
+    taps = kernel.float().flip(0, 1, 2).transpose(3, 4)
+    return _tile_walk_ref(dz.float(), taps, plan, clamp=False,
+                          fold=pad_mode == "edge")
 
 
 def conv3_planes(x, kernel, bias=None, residual=None, pre_scale=None,
@@ -111,14 +378,16 @@ def conv3_planes(x, kernel, bias=None, residual=None, pre_scale=None,
     if dev.type != "cuda":
         raise ValueError(f"conv3_planes: unsupported device {dev}")
 
-    out = torch.empty((b, cout, d, h, w), device=dev, dtype=torch.float32)
+    out = x.new_empty((b, cout, d, h, w))
     pre_mode = 0 if pre_relu is None else (2 if pre_relu else 1)
     use_pre = pre_relu is not None
     _build.launch(
         "hp_conv3p_fwd", x.data_ptr(), kernel.data_ptr(), _build.ptr(bias),
         _build.ptr(residual), _build.ptr(pre_scale if use_pre else None),
         _build.ptr(pre_shift if use_pre else None), out.data_ptr(),
-        b, cin, cout, d, h, w, _PADS[pad_mode], _ACTS[act], pre_mode)
+        _build.int_args(b, cin, cout, d, h, w, _PADS[pad_mode], _ACTS[act],
+                        pre_mode, *tile_plan(b, cin, cout, d, h, w)),
+        device=dev)
     conv3_planes.launches += 1
     return out
 
@@ -171,9 +440,12 @@ def conv3_planes_adjoint(dz, kernel, *, pad_mode="zero"):
     if dev.type != "cuda":
         raise ValueError(f"conv3_planes_adjoint: unsupported device {dev}")
 
-    dx = torch.empty((b, cin, d, h, w), device=dev, dtype=torch.float32)
-    _build.launch("hp_conv3p_adjoint", dz.data_ptr(), kernel.data_ptr(),
-                  dx.data_ptr(), b, cin, cout, d, h, w, _PADS[pad_mode])
+    dx = dz.new_empty((b, cin, d, h, w))
+    _build.launch(
+        "hp_conv3p_adjoint", dz.data_ptr(), kernel.data_ptr(), dx.data_ptr(),
+        _build.int_args(b, cin, cout, d, h, w, _PADS[pad_mode],
+                        *tile_plan(b, cout, cin, d, h, w)),
+        device=dev)
     conv3_planes_adjoint.launches += 1
     return dx
 

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from hiddenpose_tpu_torch.ops import kernels as K
-from hiddenpose_tpu_torch.ops.kernels import conv3mxu
+from hiddenpose_tpu_torch.ops.kernels import conv3mxu, conv3p
 
 pytestmark = pytest.mark.cuda
 
@@ -155,6 +155,102 @@ def test_conv3_planes_adjoint(dev, shape, pad_mode):
     got = _counted(K.conv3_planes_adjoint, lambda: K.conv3_planes_adjoint(
         dz, k, pad_mode=pad_mode))
     _close(got, K.conv3_planes_adjoint_ref(dz, k, pad_mode=pad_mode))
+
+
+# K1 / K5's tile walk (b, cin, cout, d, h, w): each tile width (W <= 8,
+# <= 16, wider), each channel block (C_out 1, 2-4 and 12, 5-8 and 16),
+# D = 1, H below a tile's rows, W off a multiple of 4 (the 4-byte copy
+# path) and on one with a ragged last tile, B = 1 and 2, input channels
+# in several staged groups (64 channels) and split over thread groups
+# (wide channels on small volumes).
+TILE_SHAPES = [
+    (1, 3, 5, 1, 9, 20), (2, 4, 4, 6, 5, 40), (1, 2, 3, 5, 9, 13),
+    (1, 1, 1, 7, 12, 36), (2, 1, 4, 4, 40, 44), (1, 20, 12, 9, 17, 33),
+    (1, 32, 16, 8, 8, 8), (2, 16, 32, 4, 16, 16), (1, 64, 8, 6, 16, 48),
+    (1, 8, 1, 3, 7, 6), (1, 5, 7, 2, 3, 70), (2, 4, 16, 1, 1, 1),
+]
+
+
+def _tile_case(rng, shape, dev):
+    b, cin, cout, d, h, w = shape
+    return (_t(rng, (b, cin, d, h, w), dev),
+            _t(rng, (3, 3, 3, cin, cout), dev, 1.0 / np.sqrt(27 * cin)),
+            _t(rng, (cout,), dev, 0.1), _t(rng, (b, cout, d, h, w), dev))
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_conv3_planes_tile_walk(dev, shape, pad_mode):
+    """K1 over every branch of the tile walk, with residual and leaky, and
+    a second call bit for bit."""
+    x, k, bias, res = _tile_case(np.random.RandomState(20), shape, dev)
+    kw = dict(act="leaky", pad_mode=pad_mode)
+    got = K.conv3_planes(x, k, bias, res, **kw)
+    _close(got, K.conv3_planes_ref(x, k, bias, res, **kw))
+    assert torch.equal(got, K.conv3_planes(x, k, bias, res, **kw))
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_conv3_planes_adjoint_tile_walk(dev, shape, pad_mode):
+    """K5 likewise; under edge padding every tile of these small volumes
+    touches a face, and the first and last plane fold along D."""
+    _, k, _, dz = _tile_case(np.random.RandomState(21), shape, dev)
+    got = K.conv3_planes_adjoint(dz, k, pad_mode=pad_mode)
+    _close(got, K.conv3_planes_adjoint_ref(dz, k, pad_mode=pad_mode))
+    assert torch.equal(got, K.conv3_planes_adjoint(dz, k, pad_mode=pad_mode))
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("cout", [1, 4, 8])
+def test_conv3_planes_adjoint_interior_tiles(dev, cout, pad_mode):
+    """A plane of 3 x 3 tiles of K5: the middle one takes the compile-time
+    taps under edge padding too, the other eight the face path."""
+    rng = np.random.RandomState(22)
+    dz = _t(rng, (1, cout, 5, 48, 96), dev)
+    k = _t(rng, (3, 3, 3, 2, cout), dev, 0.2)
+    plan = conv3p.tile_plan(1, cout, 2, 5, 48, 96)
+    assert not conv3p.tile_is_face(plan, plan.th, plan.tw, 48, 96)
+    _close(K.conv3_planes_adjoint(dz, k, pad_mode=pad_mode),
+           K.conv3_planes_adjoint_ref(dz, k, pad_mode=pad_mode))
+
+
+@pytest.mark.parametrize("name,value", [
+    ("TILE_BLOCKS", 1 << 20),       # one plane and one thread row a block
+    ("TILE_BLOCKS_LONG", 1),        # all of D in one block
+    ("TILE_MAX_THREADS", 32),      # one warp a block: at most 2 splits
+    ("TILE_SM_THREADS", 1 << 20),   # as many splits as fit
+    ("TILE_SLOT_BYTES", 2048),      # few channels a staged unit
+])
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+def test_conv3_planes_under_other_plans(dev, monkeypatch, name, value,
+                                        pad_mode):
+    """The kernel takes whatever plan the constants give: D chunks of 1
+    and of all of D, splits from 1 to 8, channel groups of 1."""
+    monkeypatch.setattr(conv3p, name, value)
+    conv3p.tile_plan.cache_clear()
+    try:
+        rng = np.random.RandomState(23)
+        for shape in [(2, 3, 5, 9, 13, 37), (1, 16, 8, 12, 16, 16)]:
+            x, k, bias, res = _tile_case(rng, shape, dev)
+            kw = dict(act="relu", pad_mode=pad_mode)
+            _close(K.conv3_planes(x, k, bias, res, **kw),
+                   K.conv3_planes_ref(x, k, bias, res, **kw))
+            _close(K.conv3_planes_adjoint(res, k, pad_mode=pad_mode),
+                   K.conv3_planes_adjoint_ref(res, k, pad_mode=pad_mode))
+    finally:
+        conv3p.tile_plan.cache_clear()
+
+
+def test_conv3_planes_pre_affine_whole_volume(dev):
+    """The pre-affine (+ ReLU) precedes the zero padding: the border
+    voxels see 0, not pre(0), in every tile of a ragged volume."""
+    rng = np.random.RandomState(24)
+    x, k, bias, res = _tile_case(rng, (1, 3, 5, 9, 17, 33), dev)
+    ps, pt = _t(rng, (3,), dev), _t(rng, (3,), dev) + 1.0
+    kw = dict(act="none", pad_mode="zero", pre_relu=True)
+    _close(K.conv3_planes(x, k, bias, res, ps, pt, **kw),
+           K.conv3_planes_ref(x, k, bias, res, ps, pt, **kw))
 
 
 @pytest.mark.parametrize("pad_mode", ["zero", "edge"])

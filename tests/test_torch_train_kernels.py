@@ -434,3 +434,77 @@ def test_wgrad_fixed_order_fold_matches_the_plain_version(shape, pad_mode):
     for a, a2, w_ in zip(got, again, want):
         assert torch.equal(a, a2)
         assert float((a - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
+
+
+# K5's tile walk in plain PyTorch (``conv3_planes_adjoint_tiled_ref``):
+# K1's on flipped, swapped taps; under edge padding the first and last
+# plane keep their outward tap and the tiles on a face of the volume add
+# the extra taps of ``fold_taps``.
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 7])
+def test_fold_taps_complete_the_reads_that_land_on_each_input(n):
+    """For input i the (output o, tap t) with clamp(o + t - 1) == i are the
+    forward conv's pairs that lie inside the volume, o = i - 1 + offset
+    with t = 2 - offset, plus o = i with each outward tap 2 - staged."""
+    for i in range(n):
+        got = [(i - 1 + off, 2 - off) for off in range(3)
+               if 0 <= i - 1 + off < n]
+        got += [(i, 2 - t) for t in conv3p_mod.fold_taps(i, n)]
+        want = [(o, t) for o in range(n) for t in range(3)
+                if min(max(o + t - 1, 0), n - 1) == i]
+        assert sorted(got) == want
+        assert (conv3p_mod.fold_taps(i, n) == []) == (0 < i < n - 1)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 1, 128, 128, 128),
+                                   (1, 3, 5, 5, 48, 96), (1, 2, 2, 3, 8, 8)])
+def test_face_tiles_are_the_tiles_with_a_clamped_read(shape):
+    """``tile_is_face`` is true exactly for the tiles that hold a row or a
+    column with an extra tap."""
+    b, src, dst, d, h, w = shape
+    plan = conv3p_mod.tile_plan(*shape)
+    faces = 0
+    for h0 in range(0, h, plan.th):
+        for w0 in range(0, w, plan.tw):
+            clamped = any(
+                conv3p_mod.fold_taps(i, h)
+                for i in range(h0, min(h0 + plan.th, h))) or any(
+                conv3p_mod.fold_taps(i, w)
+                for i in range(w0, min(w0 + plan.tw, w)))
+            assert conv3p_mod.tile_is_face(plan, h0, w0, h, w) == clamped
+            faces += clamped
+    tiles = -(-h // plan.th) * -(-w // plan.tw)
+    assert faces == tiles or (h > 2 * plan.th and w > 2 * plan.tw)
+
+
+ADJOINT_TILED_CASES = [
+    # (cin, cout, (d, h, w), plan)
+    (1, 1, (1, 1, 1), None), (3, 2, (2, 2, 2), None), (5, 3, (5, 6, 7), None),
+    (1, 1, (9, 17, 33), conv3p_mod.TilePlan(32, 1, 4, 2, 1, 4, 1, 1)),
+    (3, 5, (9, 17, 33), conv3p_mod.TilePlan(32, 4, 4, 2, 2, 3, 4, 1)),
+    (12, 20, (5, 6, 7), conv3p_mod.TilePlan(16, 4, 4, 1, 4, 2, 20, 1)),
+    (2, 4, (1, 9, 40), None),
+    # an interior tile among 3 x 3 (the compile-time taps under edge
+    # padding), D runs of 2 with both end planes folding
+    (2, 1, (4, 12, 96), conv3p_mod.TilePlan(32, 4, 4, 1, 1, 2, 1, 1)),
+    # channel groups of 2 with 2 splits; one plane a block with 4 splits
+    (3, 4, (5, 9, 20), conv3p_mod.TilePlan(32, 4, 4, 1, 2, 2, 2, 1)),
+    (9, 5, (3, 9, 12), conv3p_mod.TilePlan(16, 8, 2, 1, 4, 1, 4, 0)),
+]
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("cin,cout,dhw,plan", ADJOINT_TILED_CASES)
+def test_adjoint_tiled_ref_matches_plain(cin, cout, dhw, plan, pad_mode):
+    """1e-5 of the output's max: the two differ in summation order only."""
+    rng = np.random.RandomState(11)
+    b = 2 if dhw[2] < 30 else 1
+    dz = _t(_np(rng, b, cout, *dhw))
+    k = _t(_np(rng, 3, 3, 3, cin, cout, scale=(27 * cout) ** -0.5))
+    want = K.conv3_planes_adjoint_ref(dz, k, pad_mode=pad_mode)
+    got = conv3p_mod.conv3_planes_adjoint_tiled_ref(dz, k, pad_mode=pad_mode,
+                                                    plan=plan)
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    if plan is not None and dhw == (4, 12, 96):
+        assert not conv3p_mod.tile_is_face(plan, plan.th, plan.tw, *dhw[1:])
