@@ -12,10 +12,14 @@ lines:
    process per source, all at once;
 3. kernels vs plain: each kernel against its plain PyTorch version at the
    t128 batch-2 shapes of the inference path and of the train step
-   (TF32 off), error and time; K4 and K4-dx (three TF32 passes on the
+   (TF32 off), error and time; K2, K4 and K4-dx (three TF32 passes on the
    tensor cores) also against a float64 conv of the same inputs, where the
-   kernel's error may be at most twice the plain f32 version's, and at a
-   ragged shape the serving path never gives them; K9's f32 rows (three
+   kernel's error may be at most twice the plain f32 version's, and at
+   ragged shapes the serving path never gives them; K2's row of the path
+   twice for bit-identical results and beside its library conv, where it
+   may take at most 1.1 times as long, and every K8 row likewise (exact
+   against the library's backward, an odd extent on every axis off the
+   path); K9's f32 rows (three
    TF32 passes at head dim 32) likewise against a float64 attention; every
    K1 and K5 row of the path twice for bit-identical results and beside
    its library call (medians of 20 readings each, taken in turns), where
@@ -159,9 +163,10 @@ SFORMER_BF16_KERNELS_TOL = 1e-2
 SFORMER_BF16_TOL = 3e-2
 # per layer the joint-token read and the grouped attention
 SFORMER_LAUNCHES_PER_FORWARD = 16
-# Phase 3: a K1 or K5 call of the path may take this many times its library
-# call's time (``F.conv3d`` on a padded copy, ``conv3d_input``), medians of
-# LIBRARY_READINGS readings each, taken in turns
+# Phase 3: a K1, K2, K5 or K8 call of the path may take this many times its
+# library call's time (``F.conv3d``, ``conv3d_input``, the autograd of
+# ``F.max_pool3d``), medians of LIBRARY_READINGS readings each, taken in
+# turns
 CONV3P_SLOWER = 1.1
 LIBRARY_READINGS = 20
 # Phase 8: the dot probe's launch may take this many times torch.matmul's
@@ -400,8 +405,13 @@ K4_SHAPES = [(64, 64, 3), (128, 32, 3), (256, 16, 5)]
 # K4 and K4-dx off the path: one capture, extents that no tile divides
 # (width, (D, H, W)), with and without the epilogue.
 K4_RAGGED = [(64, (5, 6, 7)), (128, (5, 6, 7))]
-# K8: the UNet's four pools, (channels, extent of the pool's input).
+# K2 off the path, one capture: extents that the kernel's 8 x 16 tiles and
+# 32-plane work units do not divide, each with and without ReLU.
+K2_RAGGED = [(5, 6, 7), (9, 17, 33), (12, 20, 36)]
+# K8: the UNet's four pools, (channels, extent of the pool's input); off the
+# path an odd extent on every axis.
 POOL2_SHAPES = [(4, 128), (8, 64), (16, 32), (32, 16)]
+POOL2_ODD = (1, 3, 5, 7, 9)
 # Launches of each kernel in one t128 train step, by the shapes above.
 TRAIN_PER_STEP = {
     "conv3_planes": sum(r[6] for r in K1_SHAPES),
@@ -420,6 +430,7 @@ def phase_kernels(dev):
 
     from hiddenpose_tpu_torch.ops import kernels as K
     from hiddenpose_tpu_torch.ops.kernels import conv3mxu as k4
+    from hiddenpose_tpu_torch.ops.kernels import stem_conv as k2
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -514,19 +525,53 @@ def phase_kernels(dev):
         rows["conv3_planes_wgrad"].append(row)
     del x, xp, dz, r
 
+    # K2 at the serving shape, then alone at extents that no tile divides
+    # (one capture, off the path)
+    for vol, relu, count in [((B, 128, 128, 128), True, 1)] + [
+            ((1, *dhw), relu, 0) for dhw in K2_RAGGED
+            for relu in (True, False)]:
+        x = torch.rand((*vol, 1), generator=g, device=dev)
+        k = randn(7, 7, 7, 1, 64, scale=343 ** -0.5)
+        scale = torch.rand(64, generator=g, device=dev) + 0.5
+        shift = randn(64, scale=0.1)
+        # the library's operands: the channels-last view, OIDHW weights
+        x_ncdhw = x.permute(0, 4, 1, 2, 3)
+        w = k.permute(4, 3, 0, 1, 2).contiguous()
+        flop = 2 * 343 * 64 * x.numel()
+
+        def stem64(relu=relu):
+            """K2's function in float64."""
+            y = F.conv3d(x_ncdhw.double(), w.double(), padding=3)
+            y = (y.permute(0, 2, 3, 4, 1) * scale.double()
+                 + shift.double())
+            return y.clamp_min(0.0) if relu else y
+
+        if not torch.equal(k2.prepare_weights(k), k2.prepare_weights_ref(k)):
+            raise RuntimeError("stem_conv_raw: prepared weights differ from "
+                               "the plain version")
+        at = "x".join(map(str, vol))
+        row = compare(f"stem_conv_raw ({at},1)->64{'' if relu else ' no relu'}",
+                      lambda: K.stem_conv_raw(x, k, scale, shift, relu),
+                      lambda: K.stem_conv_raw_ref(x, k, scale, shift, relu),
+                      iters=5 if count else 20,
+                      # the conv alone, as K1's row leaves out its epilogue
+                      library_fn=lambda: F.conv3d(x_ncdhw, w, padding=3),
+                      moved=nbytes(x, k, scale, shift) + 4 * 64 * x.numel(),
+                      # three TF32 passes; the fp32 FMA bound beside it
+                      ops=[(3 * flop, "tf32")], f64_fn=stem64, repeats=True,
+                      slower=CONV3P_SLOWER if count else None)
+        row.update(per_forward=count, bound_fma_ms=flop / PEAK["f32"] * 1e3,
+                   prep_ms=cuda_ms(lambda: k2.prepare_weights(k), 20))
+        log(f"[3 kernels] stem_conv_raw ({at}): prepared weights equal the "
+            f"plain version's, their preparation {row['prep_ms']:.4f} ms; "
+            f"fp32 FMA bound {row['bound_fma_ms']:.4f} ms")
+        rows["stem_conv_raw"].append(row)
+    del x_ncdhw
+
     x = torch.rand((B, 128, 128, 128, 1), generator=g, device=dev)
     k = randn(7, 7, 7, 1, 64, scale=343 ** -0.5)
     scale = torch.rand(64, generator=g, device=dev) + 0.5
     shift = randn(64, scale=0.1)
-    row = compare("stem_conv_raw (2,128^3,1)->(2,128^3,64)",
-                  lambda: K.stem_conv_raw(x, k, scale, shift),
-                  lambda: K.stem_conv_raw_ref(x, k, scale, shift), iters=5,
-                  # conv + BN affine + ReLU: no one library call
-                  moved=nbytes(x, k, scale, shift) + 4 * B * 128 ** 3 * 64,
-                  ops=[(2 * 343 * 64 * B * 128 ** 3, "f32")])
-    row["per_forward"] = 1
-    rows["stem_conv_raw"].append(row)
-
     # the real pool input: post-ReLU stem output, many exact-zero ties
     y = K.stem_conv_raw(x, k, scale, shift - 0.5)
     zeros = (y == 0).float().mean().item()
@@ -552,19 +597,27 @@ def phase_kernels(dev):
     rows["maxpool3d_k3s2p1_vjp"].append(row)
     del y, y_ncdhw, gy
 
-    for c, n in POOL2_SHAPES:
-        x = torch.relu(randn(B, c, n, n, n))  # GroupNorm + ReLU: ties at 0
-        dy = randn(B, c, n // 2, n // 2, n // 2)
+    # K8: the path's four pools, then an odd extent on every axis with
+    # ties (one capture, off the path)
+    for vol, count in [((B, c, n, n, n), 1) for c, n in POOL2_SHAPES] + [
+            (POOL2_ODD, 0)]:
+        x = torch.relu(randn(*vol))  # GroupNorm + ReLU: ties at 0
+        if not count:
+            x = torch.round(x)
+        dy = randn(*vol[:2], *(n // 2 for n in vol[2:]))
         xg = x.clone().requires_grad_()
         pooled_graph = F.max_pool3d(xg, 2)  # its backward is the library call
-        row = compare(f"max_pool2_bwd (2,{c},{n}^3)",
+        at = (f"(2,{vol[1]},{vol[2]}^3)" if count
+              else str(vol).replace(" ", "") + " ties")
+        row = compare(f"max_pool2_bwd {at}",
                       lambda: K.max_pool2_bwd(x, dy),
                       lambda: K.max_pool2_bwd_ref(x, dy), iters=10,
                       exact=True,
                       library_fn=lambda: torch.autograd.grad(
                           pooled_graph, xg, dy, retain_graph=True),
-                      moved=nbytes(x, dy, x))
-        row["per_step"] = 1
+                      moved=nbytes(x, dy, x), repeats=True,
+                      slower=CONV3P_SLOWER)
+        row["per_step"] = count
         rows["max_pool2_bwd"].append(row)
         del xg, pooled_graph
 

@@ -33,7 +33,7 @@ SOURCES = ("conv3p.cu", "stem_conv.cu", "phase_pool.cu", "conv3mxu.cu",
            "conv3p_adjoint.cu", "conv3p_wgrad.cu", "phase_pool_vjp.cu",
            "pool2p.cu", "attn.cu", "diag_probes.cu")
 # headers the sources include: hashed with them, so an edit to one rebuilds
-HEADERS = ("cp_async.cuh", "conv3p_tile.cuh")
+HEADERS = ("cp_async.cuh", "conv3p_tile.cuh", "wgmma_tf32.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -46,6 +46,7 @@ _L = ctypes.c_longlong
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
     "hp_conv3p_fwd": [_P] * 8 + [_P],
+    "hp_stem_conv_prep": [_P] * 2 + [_P],
     "hp_stem_conv_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "hp_maxpool3d_k3s2p1": [_P] * 2 + [_I] * 8 + [_P],
     "hp_conv3_mxu_prep": [_P] * 2 + [_I] * 3 + [_P],

@@ -6,8 +6,20 @@ space-to-depth 5^3 kernel and returns the result in space-to-depth form;
 this one takes the raw (B, D, H, W, 1) volume and the raw 7^3 DHWIO kernel
 and writes the full-resolution NDHWC (B, D, H, W, 64) output, which the
 pool (K3) and the channels-last backbone read directly.  The CUDA source
-is ``csrc/stem_conv.cu``; its header says what bounds it (fp32 FMA issue)
-and how the tiling answers that.
+is ``csrc/stem_conv.cu``; its header says what bounds it (TF32 MMA issue at
+three passes) and what the design does about it.
+
+The arithmetic is that of K4 (``conv3mxu.py``): an implicit GEMM on the
+tensor cores in **three TF32 passes with f32 sums (3xTF32), never one**.
+The kernel's bookkeeping is written out in plain PyTorch here:
+:func:`prepare_weights_ref` (the weights split and laid out in the MMA's
+operand order, kw padded from 7 to 8; :func:`prepare_weights` runs the
+preparation kernel on a CUDA tensor, one small launch a call) and
+:func:`stem_conv_tiled_ref` (the input's halo split into hi and lo, each
+lane's A values gathered from it as the kernel's warps do, the B operands
+read back through the MMA's descriptor, the three passes summed a kd at a
+time).  :func:`stem_conv_raw_ref` stays the plain version everything is
+held against.
 
 On a CPU tensor the wrapper runs :func:`stem_conv_raw_ref`; on a CUDA
 tensor it launches the kernel or raises.  It is the serving stem only: it
@@ -16,12 +28,20 @@ raises when an input requires grad and grad mode is on.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from hiddenpose_tpu_torch.ops.kernels import _build
+from hiddenpose_tpu_torch.ops.kernels._tf32 import tf32_split
 
 COUT = 64
+# The kernel's block tile: two warpgroups, each an 8 x 8 patch of output
+# voxels of a plane, side by side along W.
+TILE_H, TILE_W = 8, 16
+# The three products of a 3xTF32 MMA, in the order the kernel issues them.
+TERMS = ("lo_hi", "hi_lo", "hi_hi")
 
 
 def stem_conv_raw_ref(x, kernel, scale, shift, relu=True):
@@ -33,6 +53,131 @@ def stem_conv_raw_ref(x, kernel, scale, shift, relu=True):
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+# The kernel's weight operand.  A k-step of the implicit GEMM is one (kd, kh)
+# row of taps; its 8 k slots are kw 0..7, the eighth weight 0.  Each MMA
+# reads its B operand (8 k x 64 n, hi or lo) from shared memory as 2 x 8
+# "core matrices" of 4 k x 8 n, each 128 contiguous bytes (n-row r at 16 r
+# bytes, its 4 k values): element (k, n) at k % 4 + 4 (n % 8) + 256 (k / 4)
+# + 32 (n / 8) floats.  Column r of n-tile ng = 2p + q is output channel
+# 16p + 4(r / 2) + 2q + r % 2, so that a lane's accumulators of two n-tiles
+# are 4 consecutive channels (one 16-byte store), as in K4.
+def prepare_weights_ref(kernel):
+    """Plain version of :func:`prepare_weights`: the (7, 7, 7, 1, 64) DHWIO
+    kernel, kw padded to 8, split by :func:`tf32_split` and laid out as (49
+    k-steps, 2 parts, 2 core matrices along k, 8 along n, 8 rows, 4)."""
+    w = F.pad(kernel.float().reshape(7, 7, 7, COUT), (0, 0, 0, 1))
+    parts = torch.stack(tf32_split(w))
+    # (part, kd, kh, kc, e, p, r / 2, q, r % 2)
+    parts = parts.reshape(2, 7, 7, 2, 4, 4, 4, 2, 2)
+    # -> (kd, kh, part, kc, p, q, r / 2, r % 2, e)
+    parts = parts.permute(1, 2, 0, 3, 5, 7, 6, 8, 4)
+    return parts.reshape(49, 2, 2, 8, 8, 4).contiguous()
+
+
+def prepare_weights(kernel):
+    """The kernel's weight operand (see :func:`prepare_weights_ref`), made
+    by one small kernel of ``csrc/stem_conv.cu`` for a CUDA tensor."""
+    if kernel.device.type == "cpu":
+        return prepare_weights_ref(kernel)
+    if kernel.device.type != "cuda":
+        raise ValueError(f"prepare_weights: unsupported device {kernel.device}")
+    wp = torch.empty((49, 2, 2, 8, 8, 4), device=kernel.device,
+                     dtype=torch.float32)
+    _build.launch("hp_stem_conv_prep", kernel.data_ptr(), wp.data_ptr(),
+                  device=kernel.device)
+    return wp
+
+
+def operand_b(wp):
+    """B of each (kd, kh, part) as the MMA reads it through its descriptor:
+    (7, 7, 2, 8 k, 64 columns)."""
+    k = torch.arange(8)[:, None]
+    n = torch.arange(64)[None, :]
+    off = k % 4 + 4 * (n % 8) + 256 * (k // 4) + 32 * (n // 8)
+    return wp.reshape(7, 7, 2, 512)[..., off]
+
+
+def column_channels():
+    """The output channel of each of the MMA's 64 columns."""
+    n = torch.arange(64)
+    ng, r = n // 8, n % 8
+    return 16 * (ng // 2) + 4 * (r // 2) + 2 * (ng % 2) + r % 2
+
+
+@functools.lru_cache(maxsize=1)
+def a_gather():
+    """Where the kernel's lanes load A from: for each warpgroup of the block
+    tile, k-step kh of a kd, row m and k slot of the MMA's A, the (hy, wx)
+    of the halo plane (hy 0..13, wx 0..22: the tile's rows and columns
+    from -3 on, the last column zeros), as (2, 7, 64, 8) each.  Lane (g, t)
+    of warp w loads halo rows 2w + j (j 0..7), columns g + t and g + t + 4
+    of its warpgroup's patch, and hands them to the MMA as the A fragment of
+    k-step kh: (row 16w + g, k t) row j = kh, (16w + g + 8, t) row kh + 1,
+    (16w + g, t + 4) and (16w + g + 8, t + 4) likewise at + 4."""
+    hy = torch.full((2, 7, 64, 8), -1, dtype=torch.long)
+    wx = torch.full((2, 7, 64, 8), -1, dtype=torch.long)
+    for wg in range(2):
+        for kh in range(7):
+            for w in range(4):
+                for g in range(8):
+                    for t in range(4):
+                        for reg in range(4):
+                            j = kh + reg % 2
+                            c = reg // 2
+                            m = 16 * w + g + 8 * (reg % 2)
+                            k = t + 4 * c
+                            hy[wg, kh, m, k] = 2 * w + j
+                            wx[wg, kh, m, k] = 8 * wg + g + t + 4 * c
+    assert (hy >= 0).all() and (wx >= 0).all()  # every (m, k) loaded once
+    return hy, wx
+
+
+def stem_conv_tiled_ref(x, kernel, scale, shift, relu=True, terms=TERMS):
+    """The kernel's bookkeeping in plain PyTorch: the block tiles of each
+    plane, the input's halo split into (hi, lo), each warpgroup's A gathered
+    as its lanes load it (:func:`a_gather`), the B operands of
+    :func:`prepare_weights_ref` read back through the descriptor, the
+    products of ``terms`` summed a kd at a time (f32 matrix products), the
+    seven kd partials added in order, the columns put back in channel order,
+    then the affine and ReLU.  Same arguments and result as
+    :func:`stem_conv_raw_ref`."""
+    b, d, h, w, _ = x.shape
+    th, tw = -(-h // TILE_H), -(-w // TILE_W)
+    pad = (3, 3 + tw * TILE_W - w + 1, 3, 3 + th * TILE_H - h, 3, 3)
+    halo = dict(zip(("hi", "lo"), tf32_split(F.pad(x[..., 0].float(), pad))))
+    bmat = operand_b(prepare_weights_ref(kernel))  # (kd, kh, part, 8, 64)
+    bmat = {"hi": bmat[:, :, 0], "lo": bmat[:, :, 1]}
+    hy, wx = a_gather()
+    # halo indices, broadcast to (b, d, th, tw, wg, kh, m, k)
+    ti = (torch.arange(th) * TILE_H).view(th, 1, 1, 1, 1, 1)
+    tj = (torch.arange(tw) * TILE_W).view(tw, 1, 1, 1, 1)
+    iy, ix = ti + hy, tj + wx
+    ib = torch.arange(b).view(b, 1, 1, 1, 1, 1, 1, 1)
+    acc = 0.0
+    for kd in range(7):
+        iz = (torch.arange(d) + kd).view(d, 1, 1, 1, 1, 1, 1)
+        a = {p: halo[p][ib, iz, iy, ix] for p in ("hi", "lo")}
+        part = 0.0
+        for term in terms:
+            pa, pb = term.split("_")
+            # sum over (kh, k): (..., wg, kh, m, k) x (kh, k, n)
+            am = a[pa].permute(0, 1, 2, 3, 4, 6, 5, 7).flatten(-2)
+            part = part + am @ bmat[pb][kd].reshape(56, 64)
+        acc = acc + part  # (b, d, th, tw, wg, m, n)
+    y = torch.empty_like(acc)
+    y[..., column_channels()] = acc
+    # row m = 16 w + 8 half + g of warpgroup wg is the voxel (2w + half,
+    # 8 wg + g) of the block tile: (.., wg, w, half, g, n) -> (b, d, th, w,
+    # half, tw, wg, g, n)
+    y = y.view(b, d, th, tw, 2, 4, 2, 8, COUT)
+    y = y.permute(0, 1, 2, 5, 6, 3, 4, 7, 8)
+    y = y.reshape(b, d, th * TILE_H, tw * TILE_W, COUT)[:, :, :h, :w]
+    y = y * scale + shift
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.contiguous()
 
 
 def stem_conv_raw(x, kernel, scale, shift, relu=True):
@@ -47,20 +192,20 @@ def stem_conv_raw(x, kernel, scale, shift, relu=True):
                           use="the library conv (training has no fused stem)")
     dev = x.device
     _build.check(x, "x", device=dev)
-    _build.check(kernel, "kernel", shape=(7, 7, 7, 1, COUT), device=dev,
-                 aligned=True)
-    _build.check(scale, "scale", shape=(COUT,), device=dev)
-    _build.check(shift, "shift", shape=(COUT,), device=dev)
+    _build.check(kernel, "kernel", shape=(7, 7, 7, 1, COUT), device=dev)
+    _build.check(scale, "scale", shape=(COUT,), device=dev, aligned=True)
+    _build.check(shift, "shift", shape=(COUT,), device=dev, aligned=True)
     if dev.type == "cpu":
         return stem_conv_raw_ref(x, kernel, scale, shift, relu)
     if dev.type != "cuda":
         raise ValueError(f"stem_conv_raw: unsupported device {dev}")
 
+    wp = prepare_weights(kernel)
     out = torch.empty((b, d, h, w, COUT), device=dev, dtype=torch.float32)
     _build.launch(
-        "hp_stem_conv_fwd", x.data_ptr(), kernel.data_ptr(),
-        scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b, d, h, w,
-        int(bool(relu)))
+        "hp_stem_conv_fwd", x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), out.data_ptr(), b, d, h, w, int(bool(relu)),
+        device=dev)
     stem_conv_raw.launches += 1
     return out
 

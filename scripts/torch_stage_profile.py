@@ -53,12 +53,15 @@ B = chip_smoke.B
 # K4's conv kernel and its weight preparation (csrc/conv3mxu.cu), printed
 # by name under the profiler: the preparation is part of every K4 call
 K4_KERNELS = ("conv3_tf32x3_kernel", "prep_kernel")
+# K2's conv and its weight preparation (csrc/stem_conv.cu), in the burst
+STEM_KERNELS = ("stem_conv_tc_kernel", "stem_weights_kernel")
 # K9's device kernels: the grouped form, the split over the keys (the
 # joint-token read) and the pass that combines its chunks.
 K9_KERNELS = ("attend_tc_kernel", "attend_tc_split_kernel", "combine_kernel")
-# K6's two passes and K7, by device kernel
+# K6's two passes, K7 and K8, by device kernel
 TRAIN_KERNELS = K4_KERNELS + ("conv3p_wgrad_partial", "conv3p_wgrad_reduce",
-                              "maxpool_k3s2p1_vjp_kernel")
+                              "maxpool_k3s2p1_vjp_kernel",
+                              "maxpool2_bwd_kernel")
 # Pieces of the t128 batch-2 train step, by (op, input shapes): a label and
 # the substrings a profiler key must hold.  The stem conv's matrix-product
 # backward (ops/stem_vjp.py: per sample and depth tap one batched product
@@ -388,7 +391,7 @@ def main() -> int:
         server.warmup()
         burst = device_profile("burst", lambda: [
             f.result(timeout=600) for f in [server.submit(c) for c in caps]],
-            also=K4_KERNELS)
+            also=K4_KERNELS + STEM_KERNELS)
     finally:
         server.close()
     del server

@@ -79,17 +79,54 @@ def test_conv3_planes_channels(dev, cin, cout):
            K.conv3_planes_ref(x, k, act="relu"))
 
 
-@pytest.mark.parametrize("shape", [(1, 12, 20, 36), (2, 16, 16, 16)])
-@pytest.mark.parametrize("relu", [True, False])
-def test_stem_conv(dev, shape, relu):
-    rng = np.random.RandomState(2)
+def _stem_inputs(rng, shape, dev):
     x = torch.from_numpy(rng.rand(*shape, 1).astype(np.float32)).to(dev)
     k = _t(rng, (7, 7, 7, 1, 64), dev, 0.05)
     scale = torch.from_numpy(
         (rng.rand(64) + 0.5).astype(np.float32)).to(dev)
     shift = _t(rng, (64,), dev, 0.1)
-    _close(K.stem_conv_raw(x, k, scale, shift, relu=relu),
-           K.stem_conv_raw_ref(x, k, scale, shift, relu=relu))
+    return x, k, scale, shift
+
+
+# extents that the kernel's 8 x 16 tiles and 32-plane work units do not
+# divide, down to volumes smaller than one tile
+@pytest.mark.parametrize("shape", [(1, 12, 20, 36), (2, 16, 16, 16),
+                                   (1, 5, 6, 7), (1, 9, 17, 33),
+                                   (2, 40, 9, 23), (1, 1, 1, 1)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_stem_conv(dev, shape, relu):
+    rng = np.random.RandomState(2)
+    x, k, scale, shift = _stem_inputs(rng, shape, dev)
+    n = K.stem_conv_raw.launches
+    got = K.stem_conv_raw(x, k, scale, shift, relu=relu)
+    assert K.stem_conv_raw.launches == n + 1
+    _close(got, K.stem_conv_raw_ref(x, k, scale, shift, relu=relu))
+
+
+def test_stem_conv_against_float64_and_repeats(dev):
+    """Three TF32 passes, f32 sums a kd at a time: at most twice the plain
+    f32 conv's error against float64 (or one f32 ulp of the output's max),
+    two calls bit for bit, and the weight operand bit for bit the plain
+    version's."""
+    from hiddenpose_tpu_torch.ops.kernels import stem_conv
+
+    rng = np.random.RandomState(12)
+    x, k, scale, shift = _stem_inputs(rng, (2, 24, 20, 40), dev)
+    k = k / 0.05 * 343 ** -0.5
+    got = K.stem_conv_raw(x, k, scale, shift, relu=False)
+    again = K.stem_conv_raw(x, k, scale, shift, relu=False)
+    want = K.stem_conv_raw_ref(x, k, scale, shift, relu=False)
+    want64 = F.conv3d(x.double().permute(0, 4, 1, 2, 3),
+                      k.double().permute(4, 3, 0, 1, 2), padding=3)
+    want64 = want64.permute(0, 2, 3, 4, 1) * scale.double() + shift.double()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.double() - want64).abs().max().item()
+    err_plain = (want.double() - want64).abs().max().item()
+    assert err <= max(2 * err_plain,
+                      2.0 ** -23 * want64.abs().max().item()), (err, err_plain)
+    assert torch.equal(stem_conv.prepare_weights(k),
+                       stem_conv.prepare_weights_ref(k.cpu()).to(dev))
 
 
 @pytest.mark.parametrize("shape", [(1, 9, 10, 11, 64), (2, 16, 16, 16, 8)])
@@ -386,20 +423,41 @@ def test_stem_conv_diff_on_the_gpu(dev):
             assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "all_ties"])
-@pytest.mark.parametrize("shape", [(2, 4, 8, 10, 12), (1, 3, 5, 7, 9)])
+@pytest.mark.parametrize("kind", ["random", "ties", "all_ties", "nan"])
+@pytest.mark.parametrize("shape", [(2, 4, 8, 10, 12), (1, 3, 5, 7, 9),
+                                   (2, 2, 7, 8, 10), (1, 2, 8, 9, 10),
+                                   (1, 2, 8, 10, 11), (3, 1, 3, 2, 3)])
 def test_max_pool2_bwd(dev, shape, kind):
+    """Exact against the library's backward: odd extents on each axis (the
+    uncovered voxels get 0), ties (the first maximum takes dy), NaNs (a
+    later NaN wins)."""
     rng = np.random.RandomState(8)
     x = _t(rng, shape, dev)
     if kind == "ties":
         x = torch.round(x)
     elif kind == "all_ties":
         x = torch.zeros_like(x)
+    elif kind == "nan":
+        x = torch.where(torch.from_numpy(rng.rand(*shape) < 0.1).to(dev),
+                        float("nan"), torch.round(x))
     dy = _t(rng, (*shape[:2], *(s // 2 for s in shape[2:])), dev)
     got = _counted(K.max_pool2_bwd, lambda: K.max_pool2_bwd(x, dy))
     want = K.max_pool2_bwd_ref(x, dy)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_max_pool2_bwd_at_128(dev):
+    """The UNet's largest pool, (2, 4, 128^3), post-ReLU ties: exact, and
+    two calls bit for bit."""
+    rng = np.random.RandomState(13)
+    x = torch.relu(_t(rng, (2, 4, 128, 128, 128), dev))
+    dy = _t(rng, (2, 4, 64, 64, 64), dev)
+    got = K.max_pool2_bwd(x, dy)
+    again = K.max_pool2_bwd(x, dy)
+    want = K.max_pool2_bwd_ref(x, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
 
 
 @pytest.mark.parametrize("c,n", [(64, 9), (128, 6), (256, 4)])

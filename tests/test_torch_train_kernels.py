@@ -508,3 +508,35 @@ def test_adjoint_tiled_ref_matches_plain(cin, cout, dhw, plan, pad_mode):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     if plan is not None and dhw == (4, 12, 96):
         assert not conv3p_mod.tile_is_face(plan, plan.th, plan.tw, *dhw[1:])
+
+
+# ------------------------------------- K8: the kernel's window-per-thread math
+
+@pytest.mark.parametrize("kind", ["random", "ties", "nan"])
+@pytest.mark.parametrize("shape", [(2, 4, 8, 10, 12), (1, 3, 5, 7, 9),
+                                   (1, 2, 7, 8, 10), (2, 1, 8, 9, 11),
+                                   (1, 1, 3, 2, 2)])
+def test_pool2_window_per_thread_bookkeeping_is_exact(shape, kind):
+    """K8 thread by thread in plain PyTorch (one thread a window, dy's
+    order, the voxels past the last window of an odd axis zeroed by the
+    window beside them): every voxel written once, and the result bit for
+    bit the library backward's at even and odd extents, with ties (the
+    first maximum in (d, h, w) order) and NaNs (a later NaN wins)."""
+    from hiddenpose_tpu_torch.ops.kernels import pool2p
+
+    rng = np.random.RandomState(sum(shape))
+    x = _np(rng, *shape)
+    if kind == "ties":
+        x = rng.randint(0, 3, size=shape).astype(np.float32)
+    elif kind == "nan":
+        x = np.where(rng.rand(*shape) < 0.1, np.nan, np.round(x))
+    x = _t(x.astype(np.float32))
+    dy = _t(_np(rng, *shape[:2], *(s // 2 for s in shape[2:])))
+    b, c, d, h, w = shape
+    window, extra = pool2p.window_indices(b * c, d, h, w)
+    assert window.dtype == extra.dtype == torch.int32
+    assert window.shape == (dy.numel(), 8)
+    written = torch.cat([window.reshape(-1), extra]).sort().values
+    assert torch.equal(written.long(), torch.arange(x.numel()))
+    got = pool2p.max_pool2_bwd_windows_ref(x, dy)
+    assert torch.equal(got, K.max_pool2_bwd_ref(x, dy))
