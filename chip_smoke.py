@@ -53,7 +53,24 @@ lines:
 8. probes: the four stem probes of ``scripts/torch_diag_stem_paired.py``;
    the dot probe's launch is also timed alone, into a preallocated output,
    beside ``torch.matmul`` into one (medians of 20 readings each, taken in
-   turns), and may take at most 1.1 times as long.
+   turns), and may take at most 1.1 times as long;
+9. serve bf16: the bfloat16 model's kernels (K1-bf16, K2-bf16, K3-bf16,
+   K4-bf16) against their plain versions at the path's shapes and off it:
+   within one bf16 ulp of each output (K3 exact), two calls bit for bit,
+   K2-bf16 and K4-bf16 in their f32-output form against float64 (at most
+   F64_ERR_FACTOR times the library f32 conv's error on the widened
+   operands); then ``InferenceServer(t128_config(), batch_size=2,
+   dtype="bfloat16", device="cuda:0")``, the JAX server's default, answers
+   phase 4's 9 captures on the same weights: volumes/s, p50 latency, each
+   bf16 kernel's launch count, the device's idle share over a second burst
+   under ``torch.profiler``; one batch with the kernels and one with the
+   plain versions must agree, the heatmaps of a float32 model on the same
+   weights and the joints of phase 4's float32 server must lie within the
+   stated tolerances, and a capture served alone must equal the same
+   capture served in a batch; last, the same server at batch 8 (the JAX
+   server's default batch) answers 16 requests, two full batches: its
+   volumes/s, p50, launch counts, and its joints against the batch-2
+   server's.
 
 Phase 3 also times, beside each kernel, the one PyTorch call that computes
 the same function where there is one (``library_ms``: a yardstick, used
@@ -172,6 +189,49 @@ LIBRARY_READINGS = 20
 # Phase 8: the dot probe's launch may take this many times torch.matmul's
 PROBE_DOT_SLOWER = 1.1
 DOT_PROBE_TOL = 1e-5
+# Phase 9, the bf16 kernels against their plain versions (the bf16
+# operands widened, the f32 op, one rounding): each output within one bf16
+# ulp of the plain one, plus this much of the largest output, where sums
+# that cancel near zero leave an ulp smaller than the f32 sums' own
+# difference.  K3 selects values and must match exactly.
+BF16_ATOL = 2.0 ** -16
+# The bf16 model end to end (``bf16_e2e``): its forward with the kernels,
+# with the plain versions, and a float32 model's on the same weights and
+# the same bf16-valued captures, over BF16_E2E_CAPTURES captures in
+# batches of B.  Every kernel output is within an ulp of its plain
+# version's, but an output whose f32 sum lies near a rounding boundary
+# rounds the other way, and the next layers carry such ulps on as bf16
+# noise.  The peaked weights make heatmap logits of up to about 190 (phase
+# 5), where a bf16 ulp is 1.0, so a largest difference reads a few ulps of
+# the top logit whatever the path, and a joint whose heatmap has two
+# near-equal peaks moves by voxels when one logit moves by an ulp: the
+# heatmaps are held by the RMS of their difference over the reference's
+# RMS, the joints by their mean distance.  The upper limits are about
+# twice the largest reading of one batch over 3 weight seeds x 4 batches
+# (``scripts/torch_bf16_spread.py``; NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md).  Kernels vs plain: heatmap RMS 1.012e-2 to 1.085e-2, joints
+# mean 0.246 to 0.833 voxels.  The two bf16 forwards lie as far apart as
+# each lies from f32 (the kernels' one-ulp rows above hold them closely);
+BF16_E2E_CAPTURES = 8
+BF16_KP_HM_RMS_TOL = 2.2e-2
+BF16_KP_JOINT_MEAN_TOL = 1.7
+# the bf16 forward against the float32 one: heatmap RMS 1.057e-2 to
+# 1.152e-2, joints mean 0.221 to 0.943 voxels (the joint limit also holds
+# the bf16 server's joints of phase 4's 9 captures against the float32
+# server's, and batch 8's against batch 2's, two bf16 forwards whose
+# library convs may take other algorithms).
+BF16_VS_F32_HM_RMS_TOL = 2.3e-2
+BF16_JOINT_MEAN_TOL = 1.9
+# The lower limits say that the path rounds where the JAX contract does,
+# so that an f32 path posing as bf16 fails: the f32 heatmaps rounded once
+# to bf16 lie some RMS from f32 (an f32 path that rounds only its output
+# lies just that far); the bf16 forward with its kernels must lie at least
+# BF16_AWAY_ROUNDED times as far, and at least BF16_AWAY_PLAIN times as
+# far as the bf16 forward with the plain versions does.  Readings: 6.36 to
+# 6.95 times the rounded-once RMS (1.656e-3 to 1.663e-3), and 0.997 to
+# 1.004 times the plain versions' distance.
+BF16_AWAY_ROUNDED = 3.0
+BF16_AWAY_PLAIN = 0.5
 
 
 @contextlib.contextmanager
@@ -272,11 +332,12 @@ def nbytes(*tensors):
 
 def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
             rtol_atol=None, library_fn=None, moved=0, ops=(), tag="3 kernels",
-            f64_fn=None, repeats=False, slower=None):
+            f64_fn=None, repeats=False, slower=None, bf16_ulp=False):
     """Error and times (plain, kernel, kernel, plain) of one call shape.
     The kernel's result must be exact (``exact``), within ``atol``, within
-    ``rtol_atol`` element by element, or within CONV_TOL of the plain
-    result's max; a tuple result (dk, db) is compared part by part.
+    ``rtol_atol`` element by element, within one bf16 ulp of each output
+    plus BF16_ATOL of the largest (``bf16_ulp``), or within CONV_TOL of the
+    plain result's max; a tuple result (dk, db) is compared part by part.
     ``library_fn`` is the one PyTorch call for the same function, timed
     only; ``moved`` (bytes) and ``ops`` give the bound.  ``f64_fn`` gives
     the same function in float64 (a tuple for a tuple result): the kernel's
@@ -299,6 +360,12 @@ def compare(name, kernel_fn, plain_fn, iters, exact=False, atol=None,
     finite = all(bool(torch.isfinite(g).all()) for g, _ in pairs)
     if exact:
         ok = err == 0.0
+    elif bf16_ulp:
+        from hiddenpose_tpu_torch.ops.kernels import bf16_ulp_excess
+
+        ok = finite and all(
+            bf16_ulp_excess(g, w, BF16_ATOL * w.abs().max().item()) <= 0.0
+            for g, w in pairs)
     elif atol is not None:
         ok = finite and err <= atol
     elif rtol_atol is not None:
@@ -399,6 +466,8 @@ K1_RAGGED = [(cin, cout, dhw, pad, None)
              for pad in ("zero", "edge")
              for cin, cout in ((1, 1), (3, 5), (20, 12))]
 K1_RAGGED.append((3, 5, (9, 17, 33), "zero", True))
+# The stem's input extent on the path (t128: 128^3); K3 pools its output.
+STEM_N = 128
 # K4 call shapes: (width, extent, stride-1 blocks per forward); in a train
 # step each block also runs K4-dx once.
 K4_SHAPES = [(64, 64, 3), (128, 32, 3), (256, 16, 5)]
@@ -842,14 +911,15 @@ def t128_captures(n: int):
                  for s in range(n)]
 
 
-def t128_weights(cfg):
-    """The port's peaked random weights (seed 1) for ``cfg``."""
+def t128_weights(cfg, seed: int = 1):
+    """The port's peaked random weights (seed 1 unless another is given)
+    for ``cfg``."""
     from hiddenpose_tpu_torch.models.nlospose import NlosPose
     from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
 
     with torch.device("meta"):  # names and shapes only
         template = NlosPose(cfg.model)
-    return peaked_state_dict(template, seed=1)
+    return peaked_state_dict(template, seed=seed)
 
 
 def phase_serve(dev, smi):
@@ -928,7 +998,8 @@ def phase_serve(dev, smi):
                      p50_latency_ms=lat[len(lat) // 2] * 1000,
                      closed_loop_p50_ms=sorted(lat1)[2] * 1000,
                      batches=stats["batches"], padded=stats["padded"],
-                     launches=counts, joints_spread_voxels=joints_spread)
+                     launches=counts, joints_spread_voxels=joints_spread,
+                     joints=[j.tolist() for j in results])
     finally:
         server.close()
     return server, caps, serve, counts
@@ -1318,6 +1389,462 @@ def phase_sformer(dev, smi):
     return res, counts
 
 
+def busy_seconds(events) -> float:
+    """Length of the union of the device events' [start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e6  # profiler times are in microseconds
+
+
+def idle_share(fn):
+    """(wall s, device busy s, idle share) of fn() under torch.profiler;
+    busy is the union of the device kernels' intervals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_seconds(e for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, busy, 1.0 - busy / wall
+
+
+def bf16_rows(dev):
+    """Each bf16 kernel against its plain version (one bf16 ulp; K3
+    exact), twice for identical bits, beside its one library call on the
+    same bf16 tensors, at the bf16 path's t128 batch-2 shapes and at
+    ragged volumes off the path (one capture); K2-bf16 and K4-bf16 also in
+    their f32-output form against float64."""
+    import torch.nn.functional as F
+
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.ops.kernels import conv3mxu as k4
+    from hiddenpose_tpu_torch.ops.kernels import stem_conv as k2
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf16, tag = torch.bfloat16, "9 serve bf16"
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    rows = {name: [] for name in K.SERVING_BF16}
+
+    # K1-bf16: the path's shapes (FeatureExtraction and the UNet, bf16 x
+    # and residual, f32 taps and bias), then two ragged volumes
+    cases = [(cin, cout, (n, n, n), pad, act, res, count)
+             for cin, cout, n, pad, act, res, count, _, _ in K1_SHAPES]
+    cases += [(3, 5, (9, 17, 33), "edge", "leaky", True, 0),
+              (20, 12, (5, 6, 7), "zero", "leaky", True, 0)]
+    for cin, cout, dhw, pad, act, res, count in cases:
+        nb = B if count else 1
+        x = randn(nb, cin, *dhw).to(bf16)
+        k = randn(3, 3, 3, cin, cout, scale=(27 * cin) ** -0.5)
+        bias = randn(cout, scale=0.1)
+        r = randn(nb, cout, *dhw).to(bf16) if res else None
+        nvox = nb * dhw[0] * dhw[1] * dhw[2]
+        xp = F.pad(x, (1,) * 6, mode="replicate" if pad == "edge"
+                   else "constant")
+        w = k.permute(4, 3, 0, 1, 2).to(bf16).contiguous()
+        kw = dict(act=act, pad_mode=pad)
+        at = (f"@{dhw[0]}^3" if count else "@" + "x".join(map(str, dhw)))
+        row = compare(
+            f"conv3_planes_bf16 {cin}->{cout} {at} {pad} {act}"
+            f"{' +residual' if res else ''}",
+            lambda: K.conv3_planes_bf16(x, k, bias, r, **kw),
+            lambda: K.conv3_planes_ref(x, k, bias, r, **kw), iters=5,
+            library_fn=lambda: F.conv3d(xp, w, bias.to(bf16)),
+            moved=nbytes(x, k, bias, r) + 2 * cout * nvox,
+            # the sums are f32 FMAs
+            ops=[(2 * 27 * cin * cout * nvox, "f32")], tag=tag,
+            repeats=True, bf16_ulp=True)
+        row["per_forward"] = count
+        rows["conv3_planes_bf16"].append(row)
+    del x, xp, r
+
+    def f64_check(row, kernel_fn, plain_fn, f64_fn):
+        """The f32-output form of the kernel against float64, beside the
+        library's f32 conv (TF32 off) of the widened operands."""
+        chk = compare(row["shape"] + " f32 out", kernel_fn, plain_fn,
+                      iters=1, tag=tag, f64_fn=f64_fn)
+        row.update(err_vs_f64=chk["err_vs_f64"],
+                   plain_err_vs_f64=chk["plain_err_vs_f64"])
+
+    # K2-bf16 at the serving shape, then two ragged volumes
+    for vol, relu, count in [((B, STEM_N, STEM_N, STEM_N), True, 1),
+                             ((1, 5, 6, 7), True, 0),
+                             ((1, 9, 17, 33), False, 0)]:
+        x = torch.rand((*vol, 1), generator=g, device=dev).to(bf16)
+        k = randn(7, 7, 7, 1, 64, scale=343 ** -0.5).to(bf16)
+        scale = torch.rand(64, generator=g, device=dev) + 0.5
+        shift = randn(64, scale=0.1)
+        x_ncdhw = x.permute(0, 4, 1, 2, 3)
+        w = k.permute(4, 3, 0, 1, 2).contiguous()
+        if not torch.equal(k2.prepare_weights_bf16(k),
+                           k2.prepare_weights_bf16_ref(k)):
+            raise RuntimeError("stem_conv_raw_bf16: prepared weights differ "
+                               "from the plain version")
+
+        def stem64(relu=relu):
+            y = F.conv3d(x_ncdhw.double(), w.double(), padding=3)
+            y = y.permute(0, 2, 3, 4, 1) * scale.double() + shift.double()
+            return y.clamp_min(0.0) if relu else y
+
+        at = "x".join(map(str, vol))
+        row = compare(
+            f"stem_conv_raw_bf16 ({at},1)->64{'' if relu else ' no relu'}",
+            lambda: K.stem_conv_raw_bf16(x, k, scale, shift, relu),
+            lambda: K.stem_conv_raw_ref(x, k, scale, shift, relu),
+            iters=5 if count else 20,
+            library_fn=lambda: F.conv3d(x_ncdhw, w, padding=3),
+            moved=nbytes(x, k, scale, shift) + 2 * 64 * x.numel(),
+            ops=[(2 * 343 * 64 * x.numel(), "bf16")], tag=tag, repeats=True,
+            bf16_ulp=True)
+        f64_check(row, lambda: K.stem_conv_raw_bf16(
+                      x, k, scale, shift, relu, out_dtype=torch.float32),
+                  lambda: K.stem_conv_raw_ref(x.float(), k.float(), scale,
+                                              shift, relu), stem64)
+        row.update(per_forward=count, prep_ms=cuda_ms(
+            lambda: k2.prepare_weights_bf16(k), 20))
+        rows["stem_conv_raw_bf16"].append(row)
+
+    # K3-bf16 on the stem's bf16 output (post-ReLU: many exact-zero ties),
+    # then an odd volume off the path
+    x = torch.rand((B, STEM_N, STEM_N, STEM_N, 1), generator=g,
+                   device=dev).to(bf16)
+    k = randn(7, 7, 7, 1, 64, scale=343 ** -0.5).to(bf16)
+    y = K.stem_conv_raw_bf16(x, k, torch.rand(64, generator=g, device=dev)
+                             + 0.5, randn(64, scale=0.1) - 0.5)
+    for y, count in ((y, 1), (randn(1, 9, 10, 11, 64).to(bf16), 0)):
+        zeros = (y == 0).float().mean().item()
+        y_ncdhw = y.permute(0, 4, 1, 2, 3)
+        out = 2 * y.shape[0] * 64 * np.prod(
+            [(n - 1) // 2 + 1 for n in y.shape[1:4]])
+        row = compare(
+            f"maxpool3d_k3s2p1_bf16 {tuple(y.shape)} ({zeros:.0%} zeros)",
+            lambda: K.maxpool3d_k3s2p1_bf16(y),
+            lambda: K.maxpool3d_k3s2p1_ref(y), iters=10, exact=True,
+            library_fn=lambda: F.max_pool3d(y_ncdhw, 3, 2, 1),
+            moved=nbytes(y) + int(out), tag=tag, repeats=True)
+        row["per_forward"] = count
+        rows["maxpool3d_k3s2p1_bf16"].append(row)
+    del x, y, y_ncdhw
+
+    # K4-bf16: the path's three shapes with the bn2 epilogue, then ragged
+    # volumes with and without it
+    cases = [(c, (B, n, n, n), count, (True,)) for c, n, count in K4_SHAPES]
+    cases += [(c, (1, *dhw), 0, (True, False)) for c, dhw in K4_RAGGED]
+    for c, vol, count, epilogues in cases:
+        x = randn(*vol, c).to(bf16)
+        k = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(bf16)
+        sc = torch.rand(c, generator=g, device=dev) + 0.5
+        sh = randn(c, scale=0.1)
+        x_ncdhw = x.permute(0, 4, 1, 2, 3)
+        w = k.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        if not torch.equal(k4.prepare_weights_bf16(k),
+                           k4.prepare_weights_bf16_ref(k)):
+            raise RuntimeError(f"conv3_mxu_bf16 c{c}: prepared weights "
+                               "differ from the plain version")
+        at = f"c{c}@{'x'.join(map(str, vol[1:]))} b{vol[0]}"
+        flop = 2 * 27 * c * c * (x.numel() // c)
+        for epi in epilogues:
+            e = dict(scale=sc, shift=sh, relu=True) if epi else {}
+
+            def conv64(e=e):
+                y = F.conv3d(x_ncdhw.double(), w.double(),
+                             padding=1).permute(0, 2, 3, 4, 1)
+                if e:
+                    y = (y * sc.double() + sh.double()).clamp_min(0.0)
+                return y
+
+            row = compare(
+                f"conv3_mxu_bf16 {at}{' +bn+relu' if epi else ''}",
+                lambda: K.conv3_mxu_bf16(x, k, **e),
+                lambda: K.conv3_mxu_ref(x, k, **e), iters=5,
+                library_fn=lambda: F.conv3d(x_ncdhw, w, padding=1),
+                moved=nbytes(x, k, sc, sh, x), ops=[(flop, "bf16")], tag=tag,
+                repeats=True, bf16_ulp=True)
+            f64_check(row, lambda: K.conv3_mxu_bf16(
+                          x, k, **e, out_dtype=torch.float32),
+                      lambda: K.conv3_mxu_ref(x.float(), k.float(), **e),
+                      conv64)
+            row["per_forward"] = count
+            rows["conv3_mxu_bf16"].append(row)
+    del x, x_ncdhw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve_bf16(dev, smi, f32_serve):
+    """The bf16 kernels' rows, then the bf16 server on phase 4's weights
+    and captures.  Every reading is taken and logged before a check may
+    fail."""
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.serve import InferenceServer
+
+    rows = bf16_rows(dev)
+    tag = "9 serve bf16"
+    cfg, caps = t128_captures(9)
+    server = InferenceServer(cfg, t128_weights(cfg), batch_size=B,
+                             dtype="bfloat16", device=dev)
+    try:
+        t0 = time.perf_counter()
+        server.warmup()
+        log(f"[{tag}] warm-up request {time.perf_counter() - t0:.2f} s")
+        lat1 = []
+        for c in caps[:5]:
+            t0 = time.perf_counter()
+            server.infer(c)
+            lat1.append(time.perf_counter() - t0)
+
+        before = server.stats()
+        K.reset_launch_counts()
+        t_sub, t_done, futs = {}, {}, []
+        start = time.perf_counter()
+        for i, c in enumerate(caps):
+            t_sub[i] = time.perf_counter()
+            f = server.submit(c)
+            f.add_done_callback(
+                lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
+            futs.append(f)
+        results = [f.result(timeout=600)["joints"] for f in futs]
+        wall = time.perf_counter() - start
+        counts = K.launch_counts()
+        batches = server.stats()["batches"] - before["batches"]
+        lat = sorted(t_done[i] - t_sub[i] for i in range(len(caps)))
+        log(f"[{tag}] {len(caps)} requests in {batches} batches in "
+            f"{wall:.3f} s: {len(caps) / wall:.3f} volumes/s, p50 latency "
+            f"{lat[len(lat) // 2] * 1000:.1f} ms under the burst; closed-loop"
+            f" p50 {sorted(lat1)[2] * 1000:.1f} ms  [{smi}]")
+        log(f"[{tag}] launch counts over the burst: {counts}")
+        per_forward = {
+            "conv3_planes_bf16": sum(row[6] for row in K1_SHAPES),
+            "stem_conv_raw_bf16": 1, "maxpool3d_k3s2p1_bf16": 1,
+            "conv3_mxu_bf16": sum(row[2] for row in K4_SHAPES)}
+        want = {k: per_forward.get(k, 0) * batches for k in counts}
+
+        p_wall, p_busy, idle = idle_share(lambda: [
+            f.result(timeout=600) for f in [server.submit(c) for c in caps]])
+        log(f"[{tag}] a second burst under torch.profiler: wall "
+            f"{p_wall:.4f} s, device busy {p_busy:.4f} s, idle share "
+            f"{idle:.4f}")
+
+        f32_joints = np.asarray(f32_serve["joints"], np.float32)
+        d32 = np.abs(np.stack(results) - f32_joints)
+        log(f"[{tag}] joints of the 9 captures against the float32 "
+            f"server's (phase 4): mean |d| {d32.mean():.3e} voxels "
+            f"(tolerance {BF16_JOINT_MEAN_TOL}), median "
+            f"{np.median(d32):.3e}, max {d32.max():.3e}; float32 joints "
+            f"spread {float(np.ptp(f32_joints)):.3f} voxels")
+
+        with deterministic():
+            alone = [server.infer(c)["joints"] for c in caps[:5]]
+            batched = [f.result(timeout=600)["joints"]
+                       for f in [server.submit(c) for c in caps[:5]]]
+        d = float(np.abs(np.stack(batched) - np.stack(alone)).max())
+        log(f"[{tag}] captures 0-4 alone vs in batches: max |d joints| "
+            f"{d:.3e} voxels (tolerance {BATCH_TOL})")
+    finally:
+        server.close()
+    del server
+    torch.cuda.empty_cache()
+    e2e = bf16_e2e(dev, cfg, t128_weights(cfg), caps[:BF16_E2E_CAPTURES])
+    a = e2e["all"]
+    log(f"[{tag}] over {BF16_E2E_CAPTURES} captures in batches of {B}: "
+        f"kernels vs plain, heatmap RMS {a['kp_hm_rms']:.3e} of the plain "
+        f"one's (tolerance {BF16_KP_HM_RMS_TOL}), max |d| "
+        f"{a['kp_hm_max']:.3e} of its max, joints mean |d| "
+        f"{a['kp_joints_mean']:.3e} voxels (tolerance "
+        f"{BF16_KP_JOINT_MEAN_TOL}), max {a['kp_joints_max']:.3e}; against "
+        f"the float32 model: heatmap RMS {a['f32_hm_rms']:.3e} of its RMS "
+        f"(tolerance {BF16_VS_F32_HM_RMS_TOL}; {a['f32_hm_rms'] / a['rounded_hm_rms']:.2f}"
+        f" x the f32 heatmaps rounded once, {a['rounded_hm_rms']:.3e}, at "
+        f"least {BF16_AWAY_ROUNDED}; "
+        f"{a['f32_hm_rms'] / a['plain_f32_hm_rms']:.3f} x the plain "
+        f"versions', {a['plain_f32_hm_rms']:.3e}, at least "
+        f"{BF16_AWAY_PLAIN}), max |d| {a['f32_hm_max']:.3e} of its max, "
+        f"joints mean |d| {a['f32_joints_mean']:.3e} voxels (tolerance "
+        f"{BF16_JOINT_MEAN_TOL}), max {a['f32_joints_max']:.3e}; forward "
+        f"b{B}: kernels {e2e['forward_ms_kernels']:.2f} ms, plain "
+        f"{e2e['forward_ms_plain']:.2f} ms")
+    b8 = serve_bf16_batch8(dev, smi, cfg, caps, results, per_forward)
+
+    for j in results + b8.pop("results"):
+        if j.shape != (24, 3) or not np.isfinite(j).all():
+            raise RuntimeError(f"bad joints {j.shape}")
+    if counts != want or min(counts[k] for k in K.SERVING_BF16) <= 0:
+        raise RuntimeError(f"launch counts {counts}, expected {want}")
+    if not (e2e["heatmaps_bf16_finite"]
+            and a["kp_hm_rms"] <= BF16_KP_HM_RMS_TOL
+            and a["kp_joints_mean"] <= BF16_KP_JOINT_MEAN_TOL):
+        raise RuntimeError("bf16: kernels and plain versions disagree")
+    if not (a["f32_hm_rms"] <= BF16_VS_F32_HM_RMS_TOL
+            and a["f32_joints_mean"] <= BF16_JOINT_MEAN_TOL
+            and d32.mean() <= BF16_JOINT_MEAN_TOL):
+        raise RuntimeError("bf16: too far from the float32 model")
+    if not (a["f32_hm_rms"] >= BF16_AWAY_ROUNDED * a["rounded_hm_rms"]
+            and a["f32_hm_rms"] >= BF16_AWAY_PLAIN * a["plain_f32_hm_rms"]):
+        raise RuntimeError("bf16: too close to the float32 model for a "
+                           "path that rounds to bf16 where JAX does")
+    if d > BATCH_TOL:
+        raise RuntimeError("bf16: per-request result depends on the batch")
+    if b8["launches"] != b8["launches_expected"]:
+        raise RuntimeError(f"batch 8: launch counts {b8['launches']}, "
+                           f"expected {b8['launches_expected']}")
+    if not b8["vs_b2_joints_mean_abs"] <= BF16_JOINT_MEAN_TOL:
+        raise RuntimeError("bf16: batch 8 and batch 2 disagree")
+    serve = dict(requests=len(caps), wall_s=wall,
+                 volumes_per_s=len(caps) / wall,
+                 p50_latency_ms=lat[len(lat) // 2] * 1000,
+                 closed_loop_p50_ms=sorted(lat1)[2] * 1000, batches=batches,
+                 launches=counts, profiled_wall_s=p_wall,
+                 profiled_busy_s=p_busy, idle_share=idle, end_to_end=e2e,
+                 vs_f32_joints_max_abs=float(d32.max()),
+                 vs_f32_joints_mean_abs=float(d32.mean()),
+                 alone_vs_batched=d, batch8=b8)
+    return rows, counts, serve
+
+
+def bf16_e2e(dev, cfg, weights, caps):
+    """The bf16 model end to end on ``caps`` in batches of B, under
+    deterministic algorithms: its forward with the kernels (``k``) and
+    with the plain versions (``p``), and a float32 model's (``32``), on
+    the same weights and the same captures rounded to bf16 (as the bf16
+    server sends them).  For each pair (``kp``: k vs p; ``f32``: k vs 32;
+    ``plain_f32``: p vs 32; ``rounded``: the float32 heatmaps rounded once
+    to bf16 vs 32), per batch and over all: the heatmaps' RMS difference
+    over the second one's RMS (``_hm_rms``), their largest difference over
+    its largest value (``_hm_max``), and the joints' mean and largest
+    distance in voxels."""
+    import dataclasses
+
+    from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+    from hiddenpose_tpu_torch.train.step import make_forward
+
+    fwd = {}
+    for dt in ("bfloat16", "float32"):
+        m, lct = build_nlospose(dataclasses.replace(
+            cfg.model, compute_dtype=dt), device=dev)
+        m.load_state_dict(weights)
+        fwd[dt] = (make_forward(m), lct, m)
+    (fb, lb, mb), (f32, l32, _) = fwd["bfloat16"], fwd["float32"]
+    pairs = (("kp", "k", "p"), ("f32", "k", "32"), ("plain_f32", "p", "32"),
+             ("rounded", "r", "32"))
+    # per pair: sum d^2, sum ref^2, sum |d joints|, max |d joints|,
+    # max |d| / max |ref| of a batch
+    sums = {name: [0.0, 0.0, 0.0, 0.0, 0.0] for name, _, _ in pairs}
+    batches, finite, ms = [], True, {}
+    for i in range(0, len(caps), B):
+        meas = torch.from_numpy(np.stack(caps[i:i + B])).to(dev).to(
+            torch.bfloat16)
+        hm, jt = {}, {}
+        for flag, key in ((True, "k"), (False, "p")):
+            mb.set_use_kernels(flag)
+            if i == 0:
+                ms[key] = cuda_ms(lambda: fb(meas, lb), iters=5)
+            with deterministic():
+                j, h = fb(meas, lb)
+            finite = finite and h.dtype == torch.bfloat16 and bool(
+                torch.isfinite(h.float()).all())
+            hm[key], jt[key] = h.float(), j.float()
+        mb.set_use_kernels(True)
+        with deterministic():
+            jt["32"], hm["32"] = f32(meas.float(), l32)
+        hm["r"], jt["r"] = hm["32"].to(torch.bfloat16).float(), jt["32"]
+        row = {}
+        for name, a, b in pairs:
+            d2 = (hm[a] - hm[b]).square().sum().item()
+            r2 = hm[b].square().sum().item()
+            dj = (jt[a] - jt[b]).abs()
+            dmax = ((hm[a] - hm[b]).abs().max()
+                    / hm[b].abs().max()).item()
+            row.update({f"{name}_hm_rms": (d2 / r2) ** 0.5,
+                        f"{name}_hm_max": dmax,
+                        f"{name}_joints_mean": dj.mean().item(),
+                        f"{name}_joints_max": dj.max().item()})
+            acc = sums[name]
+            acc[0] += d2
+            acc[1] += r2
+            acc[2] += dj.sum().item()
+            acc[3] = max(acc[3], dj.max().item())
+            acc[4] = max(acc[4], dmax)
+        batches.append(row)
+        del hm, jt
+    n = len(caps) * 24 * 3
+    total = {}
+    for name, acc in sums.items():
+        total.update({f"{name}_hm_rms": (acc[0] / acc[1]) ** 0.5,
+                      f"{name}_hm_max": acc[4],
+                      f"{name}_joints_mean": acc[2] / n,
+                      f"{name}_joints_max": acc[3]})
+    del fwd, mb
+    torch.cuda.empty_cache()
+    return {"all": total, "batches": batches, "heatmaps_bf16_finite": finite,
+            "forward_ms_kernels": ms["k"], "forward_ms_plain": ms["p"]}
+
+
+def serve_bf16_batch8(dev, smi, cfg, caps, b2_joints, per_forward):
+    """The bf16 server at batch 8 on 16 requests (the 9 captures, then the
+    first 7 again: two full batches); its joints of the 9 captures against
+    the batch-2 server's, whose convolutions may take other algorithms at
+    another batch size (so they are held as two bf16 forwards are)."""
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.serve import InferenceServer
+
+    tag = "9 serve bf16"
+    reqs = list(caps) + list(caps[:7])
+    torch.cuda.reset_peak_memory_stats(dev)
+    server = InferenceServer(cfg, t128_weights(cfg), batch_size=8,
+                             dtype="bfloat16", device=dev)
+    try:
+        server.warmup()
+        before = server.stats()["batches"]
+        K.reset_launch_counts()
+        t_sub, t_done, futs = {}, {}, []
+        start = time.perf_counter()
+        for i, c in enumerate(reqs):
+            t_sub[i] = time.perf_counter()
+            f = server.submit(c)
+            f.add_done_callback(
+                lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
+            futs.append(f)
+        results = [f.result(timeout=600)["joints"] for f in futs]
+        wall = time.perf_counter() - start
+        counts = K.launch_counts()
+        batches = server.stats()["batches"] - before
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        server.close()
+    lat = sorted(t_done[i] - t_sub[i] for i in range(len(reqs)))
+    d = np.abs(np.stack(results[:len(caps)]) - np.stack(b2_joints))
+    want = {k: per_forward.get(k, 0) * batches for k in counts}
+    log(f"[{tag}] batch 8: {len(reqs)} requests in {batches} batches in "
+        f"{wall:.3f} s: {len(reqs) / wall:.3f} volumes/s, p50 latency "
+        f"{lat[len(lat) // 2] * 1000:.1f} ms; launch counts "
+        f"{ {k: v for k, v in counts.items() if v} }; joints against the "
+        f"batch-2 server's: mean |d| {d.mean():.3e} voxels (tolerance "
+        f"{BF16_JOINT_MEAN_TOL}), max {d.max():.3e}; peak memory "
+        f"{peak / 2**30:.3f} GiB  [{smi}]")
+    return dict(requests=len(reqs), batches=batches, wall_s=wall,
+                volumes_per_s=len(reqs) / wall,
+                p50_latency_ms=lat[len(lat) // 2] * 1000, launches=counts,
+                launches_expected=want, vs_b2_joints_mean_abs=float(d.mean()),
+                vs_b2_joints_max_abs=float(d.max()), peak_memory_bytes=peak,
+                results=results)
+
+
 def phase_probes(dev):
     """The four stem probes, through the script a user would run; then
     each probe kernel against its plain version, timed."""
@@ -1446,15 +1973,20 @@ def main() -> int:
     sformer, sformer_counts = timed("7 sformer", phase_sformer, dev, smi)
     probe_rows, probe_counts, probes = timed("8 probes", phase_probes, dev)
     rows.update(probe_rows)
+    torch.cuda.empty_cache()
+    bf16_rows_, bf16_counts, serve_bf16 = timed(
+        "9 serve bf16", phase_serve_bf16, dev, smi, serve)
+    rows.update(bf16_rows_)
 
     from hiddenpose_tpu_torch.ops.kernels import KERNELS
 
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         # Times are summed over one unit of the kernel's main path: one b2
-        # train step's calls (one b2 serving forward's for the stem conv,
-        # one f32 Sformer forward's for attend, one run of the probe
-        # script for a probe); a shape the unit does not call weighs 0.
+        # train step's calls (one b2 serving forward's for the stem conv
+        # and for the bf16 kernels, one f32 Sformer forward's for attend,
+        # one run of the probe script for a probe); a shape the unit does
+        # not call weighs 0.
         r = rows[name]
         per = [x.get("per_step", x.get("per_forward", x.get("per_run")))
                for x in r]
@@ -1469,9 +2001,10 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             # each main path's launches, counted from 0 just before it:
             # the serving burst, the 3 train steps, the 3 Sformer
-            # captures, the probe script
+            # captures, the probe script, the bf16 serving burst
             launches=(serve_counts[name] + train_counts[name]
-                      + sformer_counts[name] + probe_counts[name]),
+                      + sformer_counts[name] + probe_counts[name]
+                      + bf16_counts[name]),
             max_abs_err=max(x["max_abs_err"] for x in on_path),
             max_abs_err_all_shapes=max(x["max_abs_err"] for x in r),
             ms=total("ms"), plain_ms=total("plain_ms"),
@@ -1480,9 +2013,9 @@ def main() -> int:
                       else "operations"),
             library_ms=(total("library_ms") if all(
                 x["library_ms"] is not None for x in on_path) else None)))
-        if "bound_fma_ms" in on_path[0]:  # K4, K4-dx, K9: the FMA bound
+        if "bound_fma_ms" in on_path[0]:  # K2, K4, K4-dx, K9: FMA bound
             kernels[-1].update(bound_fma_ms=total("bound_fma_ms"))
-        if "err_vs_f64" in on_path[0]:  # those and K6: held to float64
+        if "err_vs_f64" in on_path[0]:  # those, K6, K2-/K4-bf16: float64
             kernels[-1].update(
                 err_vs_f64=max(x["err_vs_f64"] for x in on_path),
                 plain_err_vs_f64=max(x["plain_err_vs_f64"] for x in on_path))
@@ -1492,7 +2025,7 @@ def main() -> int:
         device=smi, seconds=seconds, kernels=rows, kernels_line=kernels,
         stem_vjp=stem_vjp,
         serve=serve, end_to_end=e2e, train=train, sformer=sformer,
-        probes=probes), indent=1))
+        probes=probes, serve_bf16=serve_bf16), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

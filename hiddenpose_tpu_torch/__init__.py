@@ -28,3 +28,14 @@ def resolve_device(device) -> torch.device:
             "the port runs on the GPU by default; pass device=\"cpu\" to run "
             "on the CPU")
     return dev
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """'float32' / 'bfloat16' (or a torch dtype) -> torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    except KeyError:
+        raise ValueError(f"compute dtype must be 'float32' or 'bfloat16', "
+                         f"got {dtype!r}") from None

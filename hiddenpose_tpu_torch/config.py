@@ -38,8 +38,10 @@ class ModelConfig:
     rotary_emb: bool = True
     out_dim: int = (64 * 2 + 128) * 2
     num_frames: int = 16
-    # activation dtype of the transformer's Linear layers: 'float32' or
-    # 'bfloat16' (parameters stay float32 and are cast at use)
+    # activation dtype of NlosPose's convolutions and of the transformer's
+    # Linear layers: 'float32' or 'bfloat16' (parameters, normalisation
+    # statistics, the LCT and the soft-argmax stay float32; parameters are
+    # cast at use)
     compute_dtype: str = "float32"
     # LCT FFT batch chunking (0 = fully batched)
     lct_batch_chunk: int = 0
@@ -71,6 +73,12 @@ class TrainConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+    def with_bf16(self) -> "Config":
+        """Mixed precision: convolutions and matmuls in bfloat16, parameters,
+        normalisation statistics, the LCT and the soft-argmax in float32."""
+        return replace(self, model=replace(self.model,
+                                           compute_dtype="bfloat16"))
 
     def preset_t128(self) -> "Config":
         """The live training configuration: bin_len x4, T=128,

@@ -14,6 +14,10 @@
 // card's 20 FLOP a byte.  At 1-64 channels a K of 27 * C_in gives the
 // tensor cores nothing that a 3xTF32 split would not eat, and plain FMAs
 // keep the sums exact f32.
+// On bf16 volumes (the bfloat16 model's FeatureExtraction and UNet) the
+// source, the residual and the output are bf16 and everything else f32:
+// the JAX kernel's contract for a bf16 x (f32 weights and sums, the result
+// in x's type).
 // Design: the tile walk of conv3p_tile.cuh (each input plane staged once
 // by asynchronous copies, a register tile of R rows x CB output channels x
 // three planes in flight, channel blocks of 1, 4 or 8 that fit C_out, the
@@ -31,7 +35,7 @@ template cudaError_t dispatch<false>(int, int, int, const Args&,
 // x (B, C_in, D, H, W), k (3, 3, 3, C_in, C_out), out (B, C_out, D, H, W);
 // bias / residual / pre_scale / pre_shift may be null.  The integers come
 // as one array, p = {B, C_in, C_out, D, H, W, pad_mode, act, pre_mode, tw,
-// cb, r, thr, splits, chunk, cg, wres}: pad_mode 0 zero, 1 edge; act 0
+// cb, r, thr, splits, chunk, cg, wres, bf16}: pad_mode 0 zero, 1 edge; act 0
 // none, 1 relu, 2 leaky(0.2); pre_mode 0 no pre-affine, 1 affine, 2 affine
 // + relu; then the plan of ops/kernels/conv3p.py::tile_plan: tw 32 or 16,
 // the tile's width; cb output channels a block and r rows a thread (one of
@@ -39,7 +43,8 @@ template cudaError_t dispatch<false>(int, int, int, const Args&,
 // thr * r rows); splits thread groups over the input channels; chunk
 // planes of D a block; cg input channels staged at a time (a multiple of
 // splits, or C_in); wres whether the taps of all input channels stay in
-// shared memory.
+// shared memory; bf16 1: x, residual and out are bf16 (the taps, bias and
+// pre-affine stay f32, and so do the sums).
 extern "C" int hp_conv3p_fwd(const float* x, const float* k, const float* bias,
                              const float* residual, const float* pre_scale,
                              const float* pre_shift, float* out, const int* p,
@@ -58,6 +63,16 @@ extern "C" int hp_conv3p_fwd(const float* x, const float* k, const float* bias,
   a.vec = a.W % 4 == 0 && (uintptr_t)x % 16 == 0;
   a.vecw = cb >= 4 && a.cd % 4 == 0 && (uintptr_t)k % 16 == 0;
   a.vect = 0;
+  if (p[17]) {
+    a.src16 = reinterpret_cast<const uint16_t*>(x);
+    a.res16 = reinterpret_cast<const uint16_t*>(residual);
+    a.out16 = reinterpret_cast<uint16_t*>(out);
+    a.src = nullptr;
+    a.residual = nullptr;
+    a.out = nullptr;
+    a.vec = 0;
+    a.vec8 = a.W % 8 == 0 && (uintptr_t)x % 16 == 0;
+  }
   return (int)conv3p_tile::dispatch<false>(cb, r, tw, a,
                                            (cudaStream_t)stream);
 }

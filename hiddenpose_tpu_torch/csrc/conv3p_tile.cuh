@@ -70,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 
 namespace conv3p_tile {
@@ -95,6 +96,15 @@ struct Args {
   int thr, splits, chunk, cg, wres;  // the plan
   int vec, vecw;   // 16-byte copies of the planes / of the taps
   int vect;        // 16-byte loads of the taps along the source channels
+  // K1 on bf16 volumes: the source, residual and output as bf16 in place
+  // of src, residual and out (the taps, bias and sums stay f32).  A plane
+  // is widened to f32 on its way into shared memory, by plain loads (a
+  // cp.async copies bytes and cannot convert), so the tile walk itself is
+  // the f32 one; vec8: 16-byte loads of 8 values along a row.
+  const uint16_t* src16 = nullptr;
+  const uint16_t* res16 = nullptr;
+  uint16_t* out16 = nullptr;
+  int vec8 = 0;
 };
 
 // Pitch of a staged row: column w0 - 1 at index 3, the tile's own columns
@@ -137,7 +147,8 @@ __device__ __forceinline__ void stage(const Args& a, const Ctx& c, int u) {
   const int gp = min(max(c.pa + u / c.G, 0), D - 1);
   const int c0 = (u % c.G) * a.cg;
   const int nc = min(a.cg, a.cs - c0);
-  const float* sp = a.src + (((int64_t)c.b * a.cs + c0) * D + gp) * c.plane;
+  const int64_t sp_off = (((int64_t)c.b * a.cs + c0) * D + gp) * c.plane;
+  const float* sp = a.src16 ? nullptr : a.src + sp_off;
   const int64_t cstride = (int64_t)D * c.plane;
   // Staged row `row` = (channel, yy): its source row (h clamped under edge
   // padding) or null where it is zero.
@@ -150,7 +161,72 @@ __device__ __forceinline__ void stage(const Args& a, const Ctx& c, int u) {
     }
     return sp + (row / XH) * cstride + (int64_t)gh * W;
   };
-  if (a.pre_mode) {
+  if (a.src16) {
+    // bf16: widened on the way in, by plain loads; padding is zero (or the
+    // clamped neighbour), with the pre-affine applied to real values only
+    const uint16_t* sp16 = a.src16 + sp_off;
+    auto row16 = [&](int row) -> const uint16_t* {
+      int gh = h0 - 1 + row % XH;
+      if (a.clamp) {
+        gh = min(max(gh, 0), H - 1);
+      } else if (gh < 0 || gh >= H) {
+        return nullptr;
+      }
+      return sp16 + (row / XH) * cstride + (int64_t)gh * W;
+    };
+    auto pre = [&](float v, int row) {
+      if (a.pre_mode) {
+        const int ch = c0 + row / XH;
+        v = fmaf(v, a.pre_scale[ch], a.pre_shift[ch]);
+        if (a.pre_mode == 2) v = fmaxf(v, 0.f);
+      }
+      return v;
+    };
+    auto one = [&](const uint16_t* src, int row, int gw) {
+      if (a.clamp) gw = min(max(gw, 0), W - 1);
+      return src != nullptr && gw >= 0 && gw < W
+                 ? pre(bf16_widen(__ldg(src + gw)), row)
+                 : 0.f;
+    };
+    if (a.vec8) {
+      // the tile's own columns, eight at a time: W % 8 == 0, so the eight
+      // lie inside the volume together or not at all
+      constexpr int QW = TW / 8;
+      for (int it = tid; it < nc * XH * QW; it += nthreads) {
+        const int row = it / QW, gw = w0 + 8 * (it % QW);
+        float* dst = xs + row * XW + 4 + 8 * (it % QW);
+        const uint16_t* src = row16(row);
+        float v[8];
+        if (src != nullptr && gw < W) {
+          const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + gw));
+          const uint32_t q[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[2 * j] = pre(bf16_widen(q[j] & 0xffffu), row);
+            v[2 * j + 1] = pre(bf16_widen(q[j] >> 16), row);
+          }
+        } else {
+          // past a ragged tile's last column: the right neighbour of column
+          // W - 1 under edge padding, else zeros
+          const float e = one(src, row, W);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = e;
+        }
+        reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+        reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      for (int it = tid; it < nc * XH * 2; it += nthreads) {
+        const int row = it >> 1;
+        xs[row * XW + ((it & 1) ? TW + 4 : 3)] =
+            one(row16(row), row, (it & 1) ? w0 + TW : w0 - 1);
+      }
+    } else {
+      for (int it = tid; it < nc * XH * (TW + 2); it += nthreads) {
+        const int row = it / (TW + 2), xx = it % (TW + 2);
+        xs[row * XW + xx + 3] = one(row16(row), row, w0 - 1 + xx);
+      }
+    }
+  } else if (a.pre_mode) {
     // the pre-affine cannot ride an asynchronous copy: plain loads
     for (int it = tid; it < nc * XH * (TW + 2); it += nthreads) {
       const int row = it / (TW + 2), xx = it % (TW + 2);
@@ -333,13 +409,21 @@ __device__ __forceinline__ void emit(float (&acc)[3][R][CB], const Args& a,
     if (w < a.W && h + rr < a.H && c.dst0 + j < a.cd) {
       const int64_t o = o0 + (int64_t)j * a.D * c.plane + rr * a.W;
       v += bj;
-      if (a.residual) v += a.residual[o];
+      if (a.res16) {
+        v += bf16_widen(a.res16[o]);
+      } else if (a.residual) {
+        v += a.residual[o];
+      }
       if (a.act == 1) {
         v = fmaxf(v, 0.f);
       } else if (a.act == 2) {
         v = v >= 0.f ? v : 0.2f * v;
       }
-      a.out[o] = v;
+      if (a.out16) {
+        a.out16[o] = (uint16_t)bf16_bits(v);
+      } else {
+        a.out[o] = v;
+      }
     }
   };
   if (a.splits == 1) {

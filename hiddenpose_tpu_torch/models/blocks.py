@@ -5,7 +5,10 @@ Port of ``hiddenpose_tpu/models/blocks.py`` (``StencilConv3``,
 NCDHW, which is the JAX package's channels-planes layout, so every 3^3
 conv goes straight to the K1 kernel (``ops/kernels/conv3p.py``) with no
 transposes; with grad mode on, through its ``autograd.Function``
-(backward K5 and K6).  Module and parameter names follow the reference PyTorch
+(backward K5 and K6).  In the bfloat16 model (``dtype=torch.bfloat16``,
+the serving forward only) every conv takes its input rounded to bf16, keeps
+its weights, bias and sums in float32 and returns bf16: K1's contract for
+a bf16 volume (``conv3_planes_bf16``).  Module and parameter names follow the reference PyTorch
 model, so ``hiddenpose_tpu.utils.torch_import.convert_state_dict`` reads
 this model's ``state_dict`` directly.
 """
@@ -17,6 +20,7 @@ from torch import nn
 
 from hiddenpose_tpu_torch.ops.kernels import (
     conv3_planes,
+    conv3_planes_bf16,
     conv3_planes_diff,
     conv3_planes_ref,
 )
@@ -27,11 +31,14 @@ def dhwio(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 4, 1, 0).contiguous()
 
 
-def conv3p_route(use_kernels: bool):
-    """K1 for the serving forward, its ``autograd.Function`` when grad mode
-    is on, the plain version when kernels are off."""
+def conv3p_route(use_kernels: bool, dtype=torch.float32):
+    """K1 for the serving forward (K1-bf16 for a bfloat16 model), its
+    ``autograd.Function`` when grad mode is on, the plain version when
+    kernels are off."""
     if not use_kernels:
         return conv3_planes_ref
+    if dtype == torch.bfloat16:
+        return conv3_planes_bf16
     return conv3_planes_diff if torch.is_grad_enabled() else conv3_planes
 
 
@@ -41,17 +48,22 @@ class StencilConv3(nn.Conv3d):
 
     Holds an ordinary ``nn.Conv3d`` weight (OIDHW) and bias, so its
     ``state_dict`` is that of the reference's ``Conv3d``; the padding
-    (``pad_mode`` 'zero' or 'edge') is applied inside the kernel."""
+    (``pad_mode`` 'zero' or 'edge') is applied inside the kernel.  With
+    ``dtype=torch.bfloat16`` the input is rounded to bf16 (the residual is
+    one already) and the result is bf16."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 pad_mode: str = "zero", bias: bool = True):
+                 pad_mode: str = "zero", bias: bool = True,
+                 dtype=torch.float32):
         super().__init__(in_channels, out_channels, 3, bias=bias)
         self.pad_mode = pad_mode
+        self.compute_dtype = dtype
         self.use_kernels = True
 
     def forward(self, x, residual=None, act: str = "none"):
-        return conv3p_route(self.use_kernels)(
-            x, dhwio(self.weight), self.bias, residual, act=act,
+        dt = self.compute_dtype
+        return conv3p_route(self.use_kernels, dt)(
+            x.to(dt), dhwio(self.weight), self.bias, residual, act=act,
             pad_mode=self.pad_mode)
 
 
@@ -59,14 +71,14 @@ class ResConv3D(nn.Module):
     """leaky(x + conv(leaky(conv(x)))) with edge padding; reference tree
     ``tmp = [pad, conv, leaky, pad, conv]`` (convs at ``tmp.1``/``tmp.4``)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype=torch.float32):
         super().__init__()
         self.tmp = nn.ModuleList([
             nn.ReplicationPad3d(1),
-            StencilConv3(channels, channels, pad_mode="edge"),
+            StencilConv3(channels, channels, pad_mode="edge", dtype=dtype),
             nn.LeakyReLU(0.2),
             nn.ReplicationPad3d(1),
-            StencilConv3(channels, channels, pad_mode="edge"),
+            StencilConv3(channels, channels, pad_mode="edge", dtype=dtype),
         ])
 
     def forward(self, x):
@@ -90,22 +102,25 @@ class FeatureExtraction(nn.Module):
     conv's fused residual input.  x (B, C_in, D, H, W) -> (B, basedim, ...).
     """
 
-    def __init__(self, basedim: int = 1, in_channels: int = 1):
+    def __init__(self, basedim: int = 1, in_channels: int = 1,
+                 dtype=torch.float32):
         super().__init__()
         self.basedim = basedim
         self.conv1 = nn.ModuleList([
             nn.ReplicationPad3d(1),
-            StencilConv3(in_channels, basedim, pad_mode="edge"),
-            ResConv3D(basedim),
-            ResConv3D(basedim),
+            StencilConv3(in_channels, basedim, pad_mode="edge", dtype=dtype),
+            ResConv3D(basedim, dtype),
+            ResConv3D(basedim, dtype),
         ])
         self.weights = nn.Parameter(corner_mask(in_channels))
+        self.compute_dtype = dtype
         self.use_kernels = True
 
     def forward(self, x):
+        x = x.to(self.compute_dtype)
         h = self.conv1[1](x)
         h = self.conv1[3](self.conv1[2](h))
-        fn = conv3p_route(self.use_kernels)
+        fn = conv3p_route(self.use_kernels, self.compute_dtype)
         if self.basedim == 1:
             return fn(x, dhwio(self.weights), None, h, pad_mode="zero")
         return h + fn(x, dhwio(self.weights), pad_mode="zero")

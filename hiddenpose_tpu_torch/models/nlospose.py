@@ -14,6 +14,14 @@ The external API keeps the JAX package's NCDHW conventions.  In eval mode
 with grad mode off (serving) the kernels run with their fused epilogues;
 in training they run through their ``autograd.Function``s (see
 ``models/posenet3d.py``).
+
+``cfg.compute_dtype`` 'bfloat16' (``Config.with_bf16()``, the JAX server's
+default) is the JAX package's mixed precision, for serving: parameters stay
+float32 and are cast at use; FeatureExtraction and the UNet run on bf16
+volumes; the LCT and the normalisation run in float32 (the LCT widens its
+bf16 input); ``feature + refine`` promotes to float32; the backbone's
+convs round to bf16, its BatchNorms return float32; the heatmaps come out
+bf16 and the soft-argmax widens them.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from hiddenpose_tpu_torch import resolve_device
+from hiddenpose_tpu_torch import as_dtype, resolve_device
 from hiddenpose_tpu_torch.config import ModelConfig
 from hiddenpose_tpu_torch.models.blocks import (
     FeatureExtraction,
@@ -43,10 +51,12 @@ class NlosPose(nn.Module):
             raise NotImplementedError(
                 f"backbone {cfg.backbone!r}: only posenet3d_50 is ported")
         self.cfg = cfg
+        self.compute_dtype = dt = as_dtype(cfg.compute_dtype)
         self.feature_extraction = FeatureExtraction(
-            basedim=cfg.basedim, in_channels=cfg.in_channels)
-        self.autoencoder = UNet3d(in_channels=cfg.in_channels, n_channels=4)
-        self.pose_net = PoseNet3D(num_joints=cfg.num_joints)
+            basedim=cfg.basedim, in_channels=cfg.in_channels, dtype=dt)
+        self.autoencoder = UNet3d(in_channels=cfg.in_channels, n_channels=4,
+                                  dtype=dt)
+        self.pose_net = PoseNet3D(num_joints=cfg.num_joints, dtype=dt)
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route every kernelled op to its CUDA kernel (True, the default)
@@ -108,8 +118,9 @@ def build_nlospose(cfg: ModelConfig, device="cuda",
     without one; pass ``device="cpu"`` to run on the CPU.
 
     For a CUDA device this turns TF32 off for cuDNN convolutions and
-    matmuls: the path is full float32, as the JAX package's 'highest'
-    precision.  The flags are process-wide, so they are set once here and
+    matmuls: the float32 path is full float32, as the JAX package's
+    'highest' precision (a bf16 model's convs are bf16 on the tensor cores
+    whatever the flags).  The flags are process-wide, so they are set once here and
     never toggled around a forward, where two forwards in flight (two
     servers, or a caller beside the server's pump) would race on them."""
     device = resolve_device(device)

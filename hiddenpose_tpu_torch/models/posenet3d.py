@@ -25,6 +25,16 @@ package's train path does.  Every BatchNorm is a
 :class:`FlaxBatchNorm3d`: batch statistics in training, and running
 statistics updated with the biased batch variance, as flax does.
 
+The bfloat16 model (``dtype=torch.bfloat16``, serving only) follows the
+JAX package's casts: the stem runs K2-bf16 and K3-bf16 on the input
+rounded to bf16; every conv and deconv takes its input and weight rounded
+to bf16 and returns bf16 (the K4 conv2 with its bn2 affine and ReLU in f32
+before the one rounding; its f32 input is rounded in a separate pass,
+since the kernel's copies cannot convert); every other BatchNorm is flax's
+``nn.BatchNorm`` without a dtype, which returns float32 for a bf16 input
+and float32 parameters, so the residual adds and ReLUs run in f32 and the
+next conv rounds again; the head's final conv adds its bias in bf16.
+
 Module names follow the reference PyTorch model (``conv1``/``bn1``,
 ``layer{s}.{b}.conv{1,2,3}``/``bn{1,2,3}``/``downsample.{0,1}``,
 ``head.features.{0..9}``).
@@ -41,12 +51,15 @@ from torch import nn
 from hiddenpose_tpu_torch.models.blocks import dhwio
 from hiddenpose_tpu_torch.ops.kernels import (
     conv3_mxu,
+    conv3_mxu_bf16,
     conv3_mxu_diff,
     conv3_mxu_ref,
     maxpool3d_k3s2p1,
+    maxpool3d_k3s2p1_bf16,
     maxpool3d_k3s2p1_diff,
     maxpool3d_k3s2p1_ref,
     stem_conv_raw,
+    stem_conv_raw_bf16,
     stem_conv_raw_ref,
 )
 from hiddenpose_tpu_torch.ops.stem_vjp import stem_conv_diff
@@ -66,6 +79,29 @@ def fused(module: nn.Module) -> bool:
     """The serving forward: eval mode and grad mode off, where BN folds
     into the kernels' epilogues."""
     return not (module.training or torch.is_grad_enabled())
+
+
+def conv(m: nn.Module, x, dtype):
+    """``m`` (a ``Conv3d`` or ``ConvTranspose3d``) on ``x``; for a bf16
+    ``dtype`` with input and weight rounded to bf16 and a bf16 result (a
+    bias is added after, in bf16, as the JAX package's FinalConv does)."""
+    if dtype == torch.float32:
+        return m(x)
+    x, w = x.to(dtype), m.weight.to(dtype)
+    if isinstance(m, nn.ConvTranspose3d):
+        y = F.conv_transpose3d(x, w, None, m.stride, m.padding)
+    else:
+        y = F.conv3d(x, w, None, m.stride, m.padding)
+    if m.bias is None:
+        return y
+    return y + m.bias.to(dtype)[:, None, None, None]
+
+
+def bn(m: nn.BatchNorm3d, x):
+    """``m`` on ``x``; a bf16 ``x`` is normalised in f32 and the result is
+    float32, as flax's ``nn.BatchNorm`` without a dtype returns for a bf16
+    input and float32 parameters."""
+    return m(x.float())
 
 
 class FlaxBatchNorm3d(nn.BatchNorm3d):
@@ -94,8 +130,9 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         out = planes * self.expansion
         self.conv1 = nn.Conv3d(in_planes, planes, 1, bias=False)
         self.bn1 = FlaxBatchNorm3d(planes)
@@ -112,12 +149,16 @@ class Bottleneck(nn.Module):
         self.use_kernels = True
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
+        dt = self.compute_dtype
+        out = F.relu(bn(self.bn1, conv(self.conv1, x, dt)))
         if self.k4 and fused(self):
             scale, shift = bn_affine(self.bn2)
             fn = conv3_mxu if self.use_kernels else conv3_mxu_ref
-            out = fn(out.permute(0, 2, 3, 4, 1).contiguous(),
-                     dhwio(self.conv2.weight), scale, shift, relu=True)
+            if dt == torch.bfloat16 and self.use_kernels:
+                fn = conv3_mxu_bf16
+            out = fn(out.to(dt).permute(0, 2, 3, 4, 1).contiguous(),
+                     dhwio(self.conv2.weight).to(dt), scale, shift,
+                     relu=True)
             out = out.permute(0, 4, 1, 2, 3)
         elif self.k4:
             fn = conv3_mxu_diff if self.use_kernels else conv3_mxu_ref
@@ -125,9 +166,11 @@ class Bottleneck(nn.Module):
                      dhwio(self.conv2.weight))
             out = F.relu(self.bn2(out.permute(0, 4, 1, 2, 3)))
         else:
-            out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+            out = F.relu(bn(self.bn2, conv(self.conv2, out, dt)))
+        out = bn(self.bn3, conv(self.conv3, out, dt))
+        residual = x
+        if self.downsample is not None:
+            residual = bn(self.downsample[1], conv(self.downsample[0], x, dt))
         return F.relu(out + residual)
 
 
@@ -135,8 +178,10 @@ class DeconvHead(nn.Module):
     """3 x (ConvTranspose3d(k4, s2, p1) + BN + ReLU), then a 1x1x1 conv."""
 
     def __init__(self, in_channels: int = 2048, num_layers: int = 3,
-                 num_filters: int = 256, num_joints: int = 24):
+                 num_filters: int = 256, num_joints: int = 24,
+                 dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         layers = []
         for i in range(num_layers):
             layers += [
@@ -150,7 +195,10 @@ class DeconvHead(nn.Module):
         self.features = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.features(x)
+        f = self.features
+        for i in range(0, len(f) - 1, 3):  # deconv, BN (f32 out), ReLU
+            x = F.relu(bn(f[i + 1], conv(f[i], x, self.compute_dtype)))
+        return conv(f[-1], x, self.compute_dtype)
 
 
 class PoseNet3D(nn.Module):
@@ -158,8 +206,9 @@ class PoseNet3D(nn.Module):
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  widths: Sequence[int] = (64, 128, 256, 512),
-                 num_joints: int = 24):
+                 num_joints: int = 24, dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.conv1 = nn.Conv3d(1, widths[0], 7, padding=3, bias=False)
         self.bn1 = FlaxBatchNorm3d(widths[0])
         in_planes = widths[0]
@@ -170,10 +219,10 @@ class PoseNet3D(nn.Module):
                 s = stride if b == 0 else 1
                 proj = b == 0 and (s != 1 or
                                    in_planes != planes * Bottleneck.expansion)
-                seq.append(Bottleneck(in_planes, planes, s, proj))
+                seq.append(Bottleneck(in_planes, planes, s, proj, dtype))
                 in_planes = planes * Bottleneck.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*seq))
-        self.head = DeconvHead(in_planes, num_joints=num_joints)
+        self.head = DeconvHead(in_planes, num_joints=num_joints, dtype=dtype)
         self.use_kernels = True
 
     def stem(self, x):
@@ -189,8 +238,12 @@ class PoseNet3D(nn.Module):
             stem = stem_conv_raw if self.use_kernels else stem_conv_raw_ref
             pool = (maxpool3d_k3s2p1 if self.use_kernels
                     else maxpool3d_k3s2p1_ref)
-            y = stem(x.reshape(b, d, h, w, 1).contiguous(),
-                     dhwio(self.conv1.weight), scale, shift, relu=True)
+            dt = self.compute_dtype
+            if dt == torch.bfloat16 and self.use_kernels:
+                stem, pool = stem_conv_raw_bf16, maxpool3d_k3s2p1_bf16
+            y = stem(x.to(dt).reshape(b, d, h, w, 1).contiguous(),
+                     dhwio(self.conv1.weight).to(dt), scale, shift,
+                     relu=True)
         else:
             conv = (stem_conv_diff(x, self.conv1.weight) if self.use_kernels
                     else F.conv3d(x, self.conv1.weight, padding=3))

@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hiddenpose_tpu_torch import resolve_device
+from hiddenpose_tpu_torch import as_dtype, resolve_device
 from hiddenpose_tpu_torch.models.rotary import (
     apply_rotary,
     rotary_1d,
@@ -53,17 +53,6 @@ from hiddenpose_tpu_torch.ops.kernels.attn import (
 from hiddenpose_tpu_torch.ops.softargmax import simdr_decode
 
 LN_EPS = 1e-6  # flax's LayerNorm default; torch's is 1e-5
-
-
-def as_dtype(dtype) -> torch.dtype:
-    """'float32' / 'bfloat16' (or a torch dtype) -> torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    try:
-        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
-    except KeyError:
-        raise ValueError(f"compute dtype must be 'float32' or 'bfloat16', "
-                         f"got {dtype!r}") from None
 
 
 class Dense(nn.Linear):

@@ -9,6 +9,12 @@ torch ops, and with grad mode on the pools' backward is K8
 (``ops/kernels/pool2p.py``).
 Module names follow the reference (``conv``, ``enc{1-4}.encoder.1``,
 ``dec{1-4}.conv``, ``out.conv``; ``double_conv.{0,1,3,4}``).
+
+In the bfloat16 model (serving) the volumes are bf16 throughout, as in the
+JAX package: K1-bf16 convs, GroupNorm with statistics and affine in f32
+returning bf16, pools and the three per-axis resize passes in bf16 (each
+computed in f32 and rounded, as the JAX einsums with
+``preferred_element_type=x.dtype``), and the output conv in bf16.
 """
 
 from __future__ import annotations
@@ -36,17 +42,27 @@ class MaxPool2(nn.Module):
         return F.max_pool3d(x, 2)
 
 
+class GroupNormP(nn.GroupNorm):
+    """``nn.GroupNorm`` (same parameters and state_dict keys) as the JAX
+    package's ``GroupNormP``: statistics and affine in float32, the result
+    in the input's type (a bf16 volume comes back bf16)."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
 class DoubleConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
-                 num_groups: int = 4):
+                 num_groups: int = 4, dtype=torch.float32):
         super().__init__()
         g = min(num_groups, out_channels)
         self.double_conv = nn.Sequential(
-            StencilConv3(in_channels, out_channels),
-            nn.GroupNorm(g, out_channels, eps=1e-5),
+            StencilConv3(in_channels, out_channels, dtype=dtype),
+            GroupNormP(g, out_channels, eps=1e-5),
             nn.ReLU(),
-            StencilConv3(out_channels, out_channels),
-            nn.GroupNorm(g, out_channels, eps=1e-5),
+            StencilConv3(out_channels, out_channels, dtype=dtype),
+            GroupNormP(g, out_channels, eps=1e-5),
             nn.ReLU(),
         )
 
@@ -55,25 +71,41 @@ class DoubleConv(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype=torch.float32):
         super().__init__()
         self.encoder = nn.Sequential(
-            MaxPool2(), DoubleConv(in_channels, out_channels))
+            MaxPool2(), DoubleConv(in_channels, out_channels, dtype=dtype))
 
     def forward(self, x):
         return self.encoder(x)
 
 
+def upsample2(x):
+    """Trilinear x2 (align_corners=True) of (B, C, D, H, W).  A float32
+    volume in one pass; a bf16 one as the JAX package's three per-axis
+    passes (D, then H, then W), each in f32 and rounded to bf16."""
+    if x.dtype == torch.float32:
+        return F.interpolate(x, size=tuple(2 * s for s in x.shape[2:]),
+                             mode="trilinear", align_corners=True)
+    size = list(x.shape[2:])
+    for ax in range(3):
+        size[ax] *= 2
+        x = F.interpolate(x.float(), size=tuple(size), mode="trilinear",
+                          align_corners=True).to(x.dtype)
+    return x
+
+
 class Decoder(nn.Module):
     """Trilinear x2 of ``lo``, centre-pad to ``skip``, concat, DoubleConv."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv = DoubleConv(in_channels, out_channels)
+        self.conv = DoubleConv(in_channels, out_channels, dtype=dtype)
 
     def forward(self, lo, skip):
-        lo = F.interpolate(lo, size=tuple(2 * s for s in lo.shape[2:]),
-                           mode="trilinear", align_corners=True)
+        lo = upsample2(lo)
         pads = []
         for ax in (4, 3, 2):  # F.pad lists the last axis first
             diff = skip.shape[ax] - lo.shape[ax]
@@ -99,25 +131,34 @@ class OutConv(nn.Module):
 
     def forward(self, x):
         w = self.conv.weight[:, :, 0, 0, 0]  # (C_out, C_in)
+        bias = self.conv.bias[None, :, None, None, None]
+        if x.dtype != torch.float32:
+            # bf16 operands, the contraction in f32 rounded to bf16, then a
+            # bf16 bias add: the JAX einsum of bf16 operands, + bias
+            w = w.to(x.dtype).float()
+            y = (x.float().unsqueeze(1)
+                 * w[None, :, :, None, None, None]).sum(dim=2)
+            return y.to(x.dtype) + bias.to(x.dtype)
         y = (x.unsqueeze(1) * w[None, :, :, None, None, None]).sum(dim=2)
-        return y + self.conv.bias[None, :, None, None, None]
+        return y + bias
 
 
 class UNet3d(nn.Module):
     """(B, in_channels, D, H, W) -> same shape; width ``n_channels``."""
 
-    def __init__(self, in_channels: int = 1, n_channels: int = 4):
+    def __init__(self, in_channels: int = 1, n_channels: int = 4,
+                 dtype=torch.float32):
         super().__init__()
         n = n_channels
-        self.conv = DoubleConv(in_channels, n)
-        self.enc1 = Encoder(n, 2 * n)
-        self.enc2 = Encoder(2 * n, 4 * n)
-        self.enc3 = Encoder(4 * n, 8 * n)
-        self.enc4 = Encoder(8 * n, 8 * n)
-        self.dec1 = Decoder(16 * n, 4 * n)
-        self.dec2 = Decoder(8 * n, 2 * n)
-        self.dec3 = Decoder(4 * n, n)
-        self.dec4 = Decoder(2 * n, n)
+        self.conv = DoubleConv(in_channels, n, dtype=dtype)
+        self.enc1 = Encoder(n, 2 * n, dtype)
+        self.enc2 = Encoder(2 * n, 4 * n, dtype)
+        self.enc3 = Encoder(4 * n, 8 * n, dtype)
+        self.enc4 = Encoder(8 * n, 8 * n, dtype)
+        self.dec1 = Decoder(16 * n, 4 * n, dtype)
+        self.dec2 = Decoder(8 * n, 2 * n, dtype)
+        self.dec3 = Decoder(4 * n, n, dtype)
+        self.dec4 = Decoder(2 * n, n, dtype)
         self.out = OutConv(n, in_channels)
 
     def forward(self, x):

@@ -9,6 +9,8 @@ through them, and a note on the TPU kernel each replaces.
 
 from __future__ import annotations
 
+import torch
+
 from hiddenpose_tpu_torch.ops.kernels.attn import (
     attend,
     attend_diff,
@@ -16,6 +18,7 @@ from hiddenpose_tpu_torch.ops.kernels.attn import (
 )
 from hiddenpose_tpu_torch.ops.kernels.conv3mxu import (
     conv3_mxu,
+    conv3_mxu_bf16,
     conv3_mxu_diff,
     conv3_mxu_dx,
     conv3_mxu_dx_ref,
@@ -25,6 +28,7 @@ from hiddenpose_tpu_torch.ops.kernels.conv3p import (
     conv3_planes,
     conv3_planes_adjoint,
     conv3_planes_adjoint_ref,
+    conv3_planes_bf16,
     conv3_planes_diff,
     conv3_planes_ref,
     conv3_planes_wgrad,
@@ -32,6 +36,7 @@ from hiddenpose_tpu_torch.ops.kernels.conv3p import (
 )
 from hiddenpose_tpu_torch.ops.kernels.phase_pool import (
     maxpool3d_k3s2p1,
+    maxpool3d_k3s2p1_bf16,
     maxpool3d_k3s2p1_diff,
     maxpool3d_k3s2p1_ref,
     maxpool3d_k3s2p1_vjp,
@@ -52,6 +57,7 @@ from hiddenpose_tpu_torch.ops.kernels.probes import (
 )
 from hiddenpose_tpu_torch.ops.kernels.stem_conv import (
     stem_conv_raw,
+    stem_conv_raw_bf16,
     stem_conv_raw_ref,
 )
 
@@ -102,6 +108,28 @@ KERNELS = {
         "hiddenpose_tpu_torch/csrc/pool2p.cu",
         "hiddenpose_tpu/ops/pallas/pool2p.py:129",
     ),
+    # the bfloat16 model's serving forward (Config.with_bf16(), the JAX
+    # server's default): the same TPU kernels on bf16 operands
+    "conv3_planes_bf16": (
+        conv3_planes_bf16, conv3_planes_ref,
+        "hiddenpose_tpu_torch/csrc/conv3p.cu",
+        "hiddenpose_tpu/ops/pallas/conv3p.py:1320",
+    ),
+    "stem_conv_raw_bf16": (
+        stem_conv_raw_bf16, stem_conv_raw_ref,
+        "hiddenpose_tpu_torch/csrc/stem_conv_bf16.cu",
+        "hiddenpose_tpu/ops/pallas/stem_conv.py:141",
+    ),
+    "maxpool3d_k3s2p1_bf16": (
+        maxpool3d_k3s2p1_bf16, maxpool3d_k3s2p1_ref,
+        "hiddenpose_tpu_torch/csrc/phase_pool.cu",
+        "hiddenpose_tpu/ops/pallas/phase_pool.py:145",
+    ),
+    "conv3_mxu_bf16": (
+        conv3_mxu_bf16, conv3_mxu_ref,
+        "hiddenpose_tpu_torch/csrc/conv3mxu_bf16.cu",
+        "hiddenpose_tpu/ops/pallas/conv3mxu.py:318",
+    ),
     "attend": (
         attend, attend_ref,
         "hiddenpose_tpu_torch/csrc/attn.cu",
@@ -124,17 +152,37 @@ KERNELS = {
     ),
 }
 
-# The kernels NlosPose's eval (serving) forward launches; its train step
+# The kernels NlosPose's eval (serving) forward launches (the bf16 model's:
+# SERVING_BF16); its train step
 # launches all of NlosPose's but stem_conv_raw (training keeps the library
 # stem conv, as the JAX package does).  The Sformer's and TimeSformer's
 # forward launches "attend"; the probes run from
 # scripts/torch_diag_stem_paired.py.
 SERVING = ("conv3_planes", "stem_conv_raw", "maxpool3d_k3s2p1", "conv3_mxu")
+SERVING_BF16 = ("conv3_planes_bf16", "stem_conv_raw_bf16",
+                "maxpool3d_k3s2p1_bf16", "conv3_mxu_bf16")
 TRAINING = ("conv3_planes", "maxpool3d_k3s2p1", "conv3_mxu", "conv3_mxu_dx",
             "conv3_planes_adjoint", "conv3_planes_wgrad",
             "maxpool3d_k3s2p1_vjp", "max_pool2_bwd")
 SFORMER = ("attend",)
 PROBES = ("probe_im2col", "probe_slice_transpose", "probe_dot_f32")
+
+
+def bf16_ulp(t):
+    """The spacing of bfloat16 values at |t| (float32 tensor out): one unit
+    in the last place of a bf16 number of that magnitude, 0 at 0."""
+    _, e = torch.frexp(t.float())
+    ulp = torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+    return torch.where(t == 0, torch.zeros_like(ulp), ulp)
+
+
+def bf16_ulp_excess(got, want, atol):
+    """How far ``got`` strays beyond one bf16 ulp of ``want`` plus ``atol``
+    (the largest |got - want| - ulp(want) - atol; a result <= 0 passes):
+    the limit every bf16 kernel is held to against its plain version."""
+    want = want.float()
+    d = (got.float() - want).abs() - bf16_ulp(want) - atol
+    return d.max().item()
 
 
 def launch_counts() -> dict:

@@ -31,9 +31,11 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("conv3p.cu", "stem_conv.cu", "phase_pool.cu", "conv3mxu.cu",
            "conv3p_adjoint.cu", "conv3p_wgrad.cu", "phase_pool_vjp.cu",
-           "pool2p.cu", "attn.cu", "diag_probes.cu")
+           "pool2p.cu", "attn.cu", "diag_probes.cu", "conv3mxu_bf16.cu",
+           "stem_conv_bf16.cu")
 # headers the sources include: hashed with them, so an edit to one rebuilds
-HEADERS = ("cp_async.cuh", "conv3p_tile.cuh", "wgmma_tf32.cuh")
+HEADERS = ("cp_async.cuh", "conv3p_tile.cuh", "wgmma_tf32.cuh",
+           "wgmma_bf16.cuh", "bf16.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -49,8 +51,13 @@ SIGNATURES = {
     "hp_stem_conv_prep": [_P] * 2 + [_P],
     "hp_stem_conv_fwd": [_P] * 5 + [_I] * 5 + [_P],
     "hp_maxpool3d_k3s2p1": [_P] * 2 + [_I] * 8 + [_P],
+    "hp_maxpool3d_k3s2p1_bf16": [_P] * 2 + [_I] * 8 + [_P],
     "hp_conv3_mxu_prep": [_P] * 2 + [_I] * 3 + [_P],
     "hp_conv3_mxu_fwd": [_P] * 5 + [_I] * 7 + [_P],
+    "hp_conv3_mxu_bf16_prep": [_P] * 2 + [_I] * 2 + [_P],
+    "hp_conv3_mxu_bf16_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    "hp_stem_conv_bf16_prep": [_P] * 2 + [_P],
+    "hp_stem_conv_bf16_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "hp_conv3p_adjoint": [_P] * 4 + [_P],
     "hp_conv3p_wgrad": [_P] * 5 + [_I] * 11 + [_P],
     "hp_maxpool3d_k3s2p1_vjp": [_P] * 3 + [_I] * 8 + [_P],

@@ -26,6 +26,13 @@ the same kernel for dx, on the spatially flipped, in/out-swapped weights
 (:func:`conv3_mxu_dx`, counted apart), and leaves dk to the library's
 weight gradient, as the JAX package leaves it to XLA's native one.
 
+:func:`conv3_mxu_bf16` is K4 of the bfloat16 model, the JAX kernel's
+default ``compute_dtype='bf16'``: bf16 operands, one pass on the tensor
+cores with f32 sums, the affine and ReLU in f32, a bf16 result.  Its own
+kernel, ``csrc/conv3mxu_bf16.cu``; :func:`prepare_weights_bf16_ref` and
+:func:`conv3_mxu_bf16_tiled_ref` write its bookkeeping out in plain
+PyTorch.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  A wrapper also raises when an input
 requires grad and grad mode is on: under autograd only
@@ -65,8 +72,10 @@ def _epilogue(y, scale, shift, relu):
 
 
 def conv3_mxu_ref(x, k, scale=None, shift=None, relu=False):
-    """Plain version: ``F.conv3d(pad=1)`` + affine + ReLU, NDHWC in/out."""
-    return _epilogue(_conv_ndhwc(x, k), scale, shift, relu)
+    """Plain version: ``F.conv3d(pad=1)`` + affine + ReLU in float32, NDHWC
+    in/out, the result in ``x``'s type (bfloat16 operands are widened
+    exactly and the result rounded once: K4's bf16 contract)."""
+    return _epilogue(_conv_ndhwc(x, k), scale, shift, relu).to(x.dtype)
 
 
 def conv3_mxu_3xtf32_ref(x, k, scale=None, shift=None, relu=False):
@@ -255,3 +264,161 @@ def conv3_mxu_diff(x, k):
     """Differentiable :func:`conv3_mxu` (no epilogue: training applies BN
     with batch statistics to the raw conv output)."""
     return Conv3Mxu.apply(x, k)
+
+
+# ------------------------------------------------------------------- bf16
+# The bf16 kernel (csrc/conv3mxu_bf16.cu) multiplies in one bf16 pass,
+# wgmma m64n64k16.  Its unit is 32 input channels of one tap, two k-steps s
+# of 16.  Neither k nor n of an MMA has to follow memory order: k slot k of
+# k-step s is input channel 8 ((k % 8) / 2) + 4s + 2 (k / 8) + k % 2 of the
+# unit, so that a lane's A of both k-steps is one 16-byte read of 8
+# consecutive channels per row, and column r of n-tile ng = 4p + q is
+# output channel 32p + 8(r / 2) + 2q + r % 2, so that its accumulators of
+# four n-tiles are 8 consecutive channels (one 16-byte store of bf16).  B
+# (16 k x 64 n, K-major) is 2 x 8 core matrices of 8 n x 8 k, 128 bytes
+# each: element (k, n) at byte 2 (k % 8) + 16 (n % 8) + 1024 (k / 8) +
+# 128 (n / 8); a unit's two k-steps are one contiguous 4 KB run.
+BF16_UNIT = 32
+
+
+def conv3mxu_bf16_supported(cin: int, cout: int) -> bool:
+    """Channel counts the bf16 kernel takes (a unit of 32 input channels
+    lies inside one tap; 64-wide output tiles never straddle C_out)."""
+    return cin % BF16_UNIT == 0 and cout % 64 == 0 and cin > 0 and cout > 0
+
+
+def unit_channels_bf16():
+    """(2 k-steps, 16 k slots): the input channel of the unit each slot
+    holds."""
+    s = torch.arange(2)[:, None]
+    k = torch.arange(16)[None, :]
+    return 8 * ((k % 8) // 2) + 4 * s + 2 * (k // 8) + k % 2
+
+
+def column_channels_bf16():
+    """The output channel (within a 64-wide block) of each of the bf16
+    MMA's 64 columns (K4-bf16's and K2-bf16's)."""
+    n = torch.arange(64)
+    ng, r = n // 8, n % 8
+    return 32 * (ng // 4) + 8 * (r // 2) + 2 * (ng % 4) + r % 2
+
+
+def b_offsets_bf16():
+    """(16 k, 64 n): the element of a k-step's B (2 x 8 core matrices of
+    8 n x 8 k bf16, K-major) that the MMA's descriptor reads as (k, n), for
+    K4-bf16 and K2-bf16."""
+    k = torch.arange(16)[:, None]
+    n = torch.arange(64)[None, :]
+    return k % 8 + 8 * (n % 8) + 512 * (k // 8) + 64 * (n // 8)
+
+
+def prepare_weights_bf16_ref(k):
+    """Plain version of :func:`prepare_weights_bf16`: ``k`` (3, 3, 3, C_in,
+    C_out) DHWIO bf16 laid out as (27 * C_in / 32 units, C_out / 64, 2
+    k-steps, 2 core matrices along k, 8 along n, 8 rows, 8) bf16."""
+    cin, cout = k.shape[3], k.shape[4]
+    w = k.reshape(27, cin // BF16_UNIT, BF16_UNIT, cout // 64, 64)
+    w = w[:, :, unit_channels_bf16()]          # (tap, cb, s, k, nb, 64)
+    w = w[..., column_channels_bf16()]         # columns in MMA order
+    # (tap, cb, s, kc, e, nb, ng, r) -> (tap, cb, nb, s, kc, ng, r, e)
+    w = w.reshape(27, cin // BF16_UNIT, 2, 2, 8, cout // 64, 8, 8)
+    w = w.permute(0, 1, 5, 2, 3, 6, 7, 4)
+    return w.reshape(27 * cin // BF16_UNIT, cout // 64, 2, 2, 8, 8,
+                     8).contiguous()
+
+
+def prepare_weights_bf16(k):
+    """The bf16 kernel's weight operand (see
+    :func:`prepare_weights_bf16_ref`), made by one small kernel of
+    ``csrc/conv3mxu_bf16.cu`` for a CUDA tensor."""
+    if k.device.type == "cpu":
+        return prepare_weights_bf16_ref(k)
+    if k.device.type != "cuda":
+        raise ValueError(f"prepare_weights_bf16: unsupported device "
+                         f"{k.device}")
+    cin, cout = k.shape[3], k.shape[4]
+    wp = torch.empty((27 * cin // BF16_UNIT, cout // 64, 2, 2, 8, 8, 8),
+                     device=k.device, dtype=torch.bfloat16)
+    _build.launch("hp_conv3_mxu_bf16_prep", k.data_ptr(), wp.data_ptr(), cin,
+                  cout, device=k.device)
+    return wp
+
+
+def conv3_mxu_bf16_tiled_ref(x, k, scale=None, shift=None, relu=False,
+                             out_dtype=torch.bfloat16):
+    """The bf16 kernel's bookkeeping in plain PyTorch: the implicit im2col
+    rows, each unit's two k-steps with their A slots in the kernel's
+    channel order, the B operands of :func:`prepare_weights_bf16_ref` read
+    back through the descriptor, one partial a unit (f32 products of bf16
+    values) added in order, the columns put back in channel order, the
+    affine and ReLU in f32, one rounding to ``out_dtype``."""
+    b, d, h, w, cin = x.shape
+    cout = k.shape[4]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    taps = torch.stack([xp[:, i:i + d, j:j + h, l:l + w]
+                        for i in range(3) for j in range(3)
+                        for l in range(3)], -2)  # (b, d, h, w, 27, cin)
+    a = taps.reshape(-1, 27, cin // BF16_UNIT, BF16_UNIT)
+    a = a[..., unit_channels_bf16()]             # (M, tap, cb, s, 16)
+    a = a.reshape(a.shape[0], -1, 2, 16)         # (M, unit, s, 16)
+    bm = prepare_weights_bf16_ref(k).reshape(
+        a.shape[1], cout // 64, 2, 1024)[..., b_offsets_bf16()].float()
+    acc = 0.0
+    for u in range(a.shape[1]):
+        part = (a[:, u, 0] @ bm[u, :, 0]) + (a[:, u, 1] @ bm[u, :, 1])
+        acc = acc + part                         # (nb, M, 64)
+    y = torch.empty_like(acc)
+    y[..., column_channels_bf16()] = acc
+    y = y.permute(1, 0, 2).reshape(b, d, h, w, cout)
+    return _epilogue(y, scale, shift, relu).to(out_dtype)
+
+
+def conv3_mxu_bf16(x, k, scale=None, shift=None, relu=False, out_dtype=None):
+    """K4 of the bfloat16 model: x (B, D, H, W, C_in) and k (3, 3, 3, C_in,
+    C_out) DHWIO bfloat16; optional float32 per-C_out ``scale``/``shift``
+    then optional ReLU.  Returns (B, D, H, W, C_out) bfloat16: the products
+    exact, the sums, affine and ReLU in f32, one rounding.
+    ``out_dtype=torch.float32`` keeps the f32 result unrounded: a check's
+    form of the same kernel (a bf16 store would hide a fault of the sums),
+    never the model's."""
+    out_dtype = torch.bfloat16 if out_dtype is None else out_dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, "
+                         f"got {out_dtype}")
+    if x.dim() != 5:
+        raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
+    b, d, h, w, cin = x.shape
+    if k.dim() != 5 or tuple(k.shape[:4]) != (3, 3, 3, cin):
+        raise ValueError(f"k must be (3, 3, 3, {cin}, C_out), "
+                         f"got {tuple(k.shape)}")
+    cout = k.shape[4]
+    if not conv3mxu_bf16_supported(cin, cout):
+        raise ValueError(f"conv3_mxu_bf16 takes C_in % 32 == 0 and "
+                         f"C_out % 64 == 0, got {cin} -> {cout}")
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift go together")
+    _build.no_grad_inputs("conv3_mxu_bf16", x, k, scale, shift,
+                          use="conv3_mxu_diff (float32)")
+    dev = x.device
+    _build.check(x, "x", device=dev, aligned=True, dtype=torch.bfloat16)
+    _build.check(k, "k", device=dev, dtype=torch.bfloat16)
+    if scale is not None:
+        _build.check(scale, "scale", shape=(cout,), device=dev, aligned=True)
+        _build.check(shift, "shift", shape=(cout,), device=dev, aligned=True)
+    if dev.type == "cpu":
+        return conv3_mxu_ref(x.float(), k, scale, shift, relu).to(out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"conv3_mxu_bf16: unsupported device {dev}")
+
+    wp = prepare_weights_bf16(k)
+    out = torch.empty((b, d, h, w, cout), device=dev, dtype=out_dtype)
+    _build.launch(
+        "hp_conv3_mxu_bf16_fwd", x.data_ptr(), wp.data_ptr(),
+        _build.ptr(scale), _build.ptr(shift), out.data_ptr(), b, d, h, w,
+        cin, cout, int(bool(relu)), int(out_dtype == torch.float32),
+        device=dev)
+    conv3_mxu_bf16.launches += 1
+    return out
+
+
+conv3_mxu_bf16.launches = 0

@@ -57,7 +57,10 @@ def _activation(out, act):
 def conv3_planes_ref(x, kernel, bias=None, residual=None, pre_scale=None,
                      pre_shift=None, *, act="none", pad_mode="zero",
                      pre_relu=None):
-    """Plain version: pre-affine, pad, ``F.conv3d``, bias, residual, act."""
+    """Plain version: pre-affine, pad, ``F.conv3d``, bias, residual, act,
+    all in float32; the result in ``x``'s type (a bfloat16 x and residual
+    are widened first and the result rounded once, K1's bf16 contract)."""
+    dtype = x.dtype
     x = x.float()
     if pre_relu is not None:
         x = x * pre_scale[None, :, None, None, None] \
@@ -69,8 +72,8 @@ def conv3_planes_ref(x, kernel, bias=None, residual=None, pre_scale=None,
     w = kernel.float().permute(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
     out = F.conv3d(xp, w, bias)
     if residual is not None:
-        out = out + residual
-    return _activation(out, act)
+        out = out + residual.float()
+    return _activation(out, act).to(dtype)
 
 
 # The tile walk of K1 and K5 (``csrc/conv3p_tile.cuh``).  A block is cut
@@ -345,6 +348,37 @@ def conv3_planes(x, kernel, bias=None, residual=None, pre_scale=None,
     ``act`` 'none', 'relu' or 'leaky' (slope 0.2, after the residual).
     All float32 and contiguous; f32 accumulation.
     """
+    return _conv3_planes(conv3_planes, x, kernel, bias, residual, pre_scale,
+                         pre_shift, act, pad_mode, pre_relu, torch.float32)
+
+
+conv3_planes.launches = 0
+
+
+def conv3_planes_bf16(x, kernel, bias=None, residual=None, pre_scale=None,
+                      pre_shift=None, *, act="none", pad_mode="zero",
+                      pre_relu=None):
+    """K1 on bfloat16 volumes, the JAX kernel's contract for a bf16 ``x``
+    (``conv3_planes`` widens x and the residual, keeps the weights, bias
+    and sums in float32 and returns x's type): x and residual bfloat16,
+    kernel, bias and pre-affine float32, the result bfloat16, rounded once
+    after the activation.  Otherwise as :func:`conv3_planes`; the same
+    kernel of ``csrc/conv3p.cu``, its planes widened on their way into
+    shared memory, counted apart."""
+    return _conv3_planes(conv3_planes_bf16, x, kernel, bias, residual,
+                         pre_scale, pre_shift, act, pad_mode, pre_relu,
+                         torch.bfloat16)
+
+
+conv3_planes_bf16.launches = 0
+
+
+def _conv3_planes(wrapper, x, kernel, bias, residual, pre_scale, pre_shift,
+                  act, pad_mode, pre_relu, dtype):
+    """Checks, then the plain version for a CPU tensor or one launch of K1
+    (counted on ``wrapper``) for a CUDA one; ``dtype`` is x's and the
+    residual's."""
+    name = wrapper.__name__
     if act not in _ACTS:
         raise ValueError(f"act must be one of {sorted(_ACTS)}, got {act!r}")
     if pad_mode not in _PADS:
@@ -356,16 +390,16 @@ def conv3_planes(x, kernel, bias=None, residual=None, pre_scale=None,
         raise ValueError(f"kernel must be (3, 3, 3, {cin}, C_out), "
                          f"got {tuple(kernel.shape)}")
     cout = kernel.shape[4]
-    _build.no_grad_inputs("conv3_planes", x, kernel, bias, residual,
+    _build.no_grad_inputs(name, x, kernel, bias, residual,
                           pre_scale, pre_shift, use="conv3_planes_diff")
     dev = x.device
-    _build.check(x, "x", device=dev)
+    _build.check(x, "x", device=dev, dtype=dtype)
     _build.check(kernel, "kernel", device=dev)
     if bias is not None:
         _build.check(bias, "bias", shape=(cout,), device=dev)
     if residual is not None:
         _build.check(residual, "residual", shape=(b, cout, d, h, w),
-                     device=dev)
+                     device=dev, dtype=dtype)
     if pre_relu is not None:
         if pre_scale is None or pre_shift is None:
             raise ValueError("pre_relu given without pre_scale/pre_shift")
@@ -376,7 +410,7 @@ def conv3_planes(x, kernel, bias=None, residual=None, pre_scale=None,
             x, kernel, bias, residual, pre_scale, pre_shift, act=act,
             pad_mode=pad_mode, pre_relu=pre_relu)
     if dev.type != "cuda":
-        raise ValueError(f"conv3_planes: unsupported device {dev}")
+        raise ValueError(f"{name}: unsupported device {dev}")
 
     out = x.new_empty((b, cout, d, h, w))
     pre_mode = 0 if pre_relu is None else (2 if pre_relu else 1)
@@ -386,13 +420,11 @@ def conv3_planes(x, kernel, bias=None, residual=None, pre_scale=None,
         _build.ptr(residual), _build.ptr(pre_scale if use_pre else None),
         _build.ptr(pre_shift if use_pre else None), out.data_ptr(),
         _build.int_args(b, cin, cout, d, h, w, _PADS[pad_mode], _ACTS[act],
-                        pre_mode, *tile_plan(b, cin, cout, d, h, w)),
+                        pre_mode, *tile_plan(b, cin, cout, d, h, w),
+                        int(dtype == torch.bfloat16)),
         device=dev)
-    conv3_planes.launches += 1
+    wrapper.launches += 1
     return out
-
-
-conv3_planes.launches = 0
 
 
 def _pad_name(pad_mode):

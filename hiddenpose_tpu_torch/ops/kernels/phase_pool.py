@@ -56,8 +56,10 @@ def _axis_max(t, axis):
 
 def maxpool3d_k3s2p1_ref(y):
     """Plain version: the separable ``torch.maximum`` chain over W, H, D
-    of (B, D, H, W, C); its autograd is the JAX package's VJP."""
-    return _axis_max(_axis_max(_axis_max(y.float(), 3), 2), 1).contiguous()
+    of (B, D, H, W, C), in float32 and returned in ``y``'s type (a maximum
+    is exact in either); its autograd is the JAX package's VJP."""
+    out = _axis_max(_axis_max(_axis_max(y.float(), 3), 2), 1)
+    return out.to(y.dtype).contiguous()
 
 
 def maxpool3d_k3s2p1(y):
@@ -85,6 +87,36 @@ def maxpool3d_k3s2p1(y):
 
 
 maxpool3d_k3s2p1.launches = 0
+
+
+def maxpool3d_k3s2p1_bf16(y):
+    """K3 on a bfloat16 volume (the serving stem's output in the bf16
+    model): y (B, D, H, W, C) bfloat16 contiguous, C % 8 == 0 -> pooled
+    NDHWC bfloat16, exact (a maximum rounds nothing).  Its own kernel of
+    ``csrc/phase_pool.cu`` reads 8 channels a 16-byte load."""
+    if y.dim() != 5:
+        raise ValueError(f"y must be (B, D, H, W, C), got {tuple(y.shape)}")
+    b, d, h, w, c = y.shape
+    if c % 8:
+        raise ValueError(f"channels must be a multiple of 8, got {c}")
+    _build.no_grad_inputs("maxpool3d_k3s2p1_bf16", y,
+                          use="maxpool3d_k3s2p1_diff (float32)")
+    dev = y.device
+    _build.check(y, "y", device=dev, aligned=True, dtype=torch.bfloat16)
+    if dev.type == "cpu":
+        return maxpool3d_k3s2p1_ref(y)
+    if dev.type != "cuda":
+        raise ValueError(f"maxpool3d_k3s2p1_bf16: unsupported device {dev}")
+
+    od, oh, ow = pooled_extent(d), pooled_extent(h), pooled_extent(w)
+    out = torch.empty((b, od, oh, ow, c), device=dev, dtype=torch.bfloat16)
+    _build.launch("hp_maxpool3d_k3s2p1_bf16", y.data_ptr(), out.data_ptr(),
+                  b, d, h, w, c, od, oh, ow)
+    maxpool3d_k3s2p1_bf16.launches += 1
+    return out
+
+
+maxpool3d_k3s2p1_bf16.launches = 0
 
 
 def maxpool3d_k3s2p1_vjp_ref(y, g):

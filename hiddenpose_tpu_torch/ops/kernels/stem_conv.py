@@ -24,6 +24,13 @@ held against.
 On a CPU tensor the wrapper runs :func:`stem_conv_raw_ref`; on a CUDA
 tensor it launches the kernel or raises.  It is the serving stem only: it
 raises when an input requires grad and grad mode is on.
+
+:func:`stem_conv_raw_bf16` is the stem of the bfloat16 model, the JAX
+kernel's arithmetic on bf16 operands (one bf16 MXU pass, f32 sums, the
+affine and ReLU in f32, the result in bf16): its own kernel,
+``csrc/stem_conv_bf16.cu``, one bf16 ``wgmma`` pass with f32 sums.  Its
+bookkeeping is written out in plain PyTorch too
+(:func:`prepare_weights_bf16_ref`, :func:`stem_conv_bf16_tiled_ref`).
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ import torch.nn.functional as F
 
 from hiddenpose_tpu_torch.ops.kernels import _build
 from hiddenpose_tpu_torch.ops.kernels._tf32 import tf32_split
+from hiddenpose_tpu_torch.ops.kernels.conv3mxu import (
+    b_offsets_bf16, column_channels_bf16)
 
 COUT = 64
 # The kernel's block tile: two warpgroups, each an 8 x 8 patch of output
@@ -45,14 +54,16 @@ TERMS = ("lo_hi", "hi_lo", "hi_hi")
 
 
 def stem_conv_raw_ref(x, kernel, scale, shift, relu=True):
-    """Plain version: ``F.conv3d(pad=3)`` + affine + ReLU, NDHWC out."""
+    """Plain version: ``F.conv3d(pad=3)`` + affine + ReLU in float32, NDHWC
+    out in ``x``'s type (bfloat16 operands are widened exactly and the
+    result rounded once: K2's bf16 contract)."""
     xc = x.float().permute(0, 4, 1, 2, 3)
     w = kernel.float().permute(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
     y = F.conv3d(xc, w, padding=3)
     y = y * scale[None, :, None, None, None] + shift[None, :, None, None, None]
     if relu:
         y = torch.clamp_min(y, 0.0)
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
 
 
 # The kernel's weight operand.  A k-step of the implicit GEMM is one (kd, kh)
@@ -211,3 +222,159 @@ def stem_conv_raw(x, kernel, scale, shift, relu=True):
 
 
 stem_conv_raw.launches = 0
+
+
+# ------------------------------------------------------------------- bf16
+# The bf16 kernel (csrc/stem_conv_bf16.cu) multiplies in one bf16 pass,
+# wgmma m64n64k16: a k-step is 16 taps, two (kd, kh) rows of kw 0..7, so
+# kh is padded from 7 to 8 as kw is (k-steps (kh 0, 1), (2, 3), (4, 5),
+# (6, 7) of each kd: 28 a voxel where 24.5 would do, 14% more products
+# than the f32 kernel's 49 rows of 8).  k slot 8 kh_sub + kw of k-step j is
+# tap (kh 2j + kh_sub, kw); the weights of kh 7 and kw 7 are 0.  B and the
+# columns are laid out as K4-bf16's (``conv3mxu.b_offsets_bf16``,
+# ``conv3mxu.column_channels_bf16``): a lane's accumulators of four n-tiles
+# are 8 consecutive channels, one 16-byte store of bf16.
+
+def prepare_weights_bf16_ref(kernel):
+    """Plain version of :func:`prepare_weights_bf16`: the (7, 7, 7, 1, 64)
+    DHWIO bf16 kernel, kh and kw padded to 8, laid out as (7 kd, 4 k-steps,
+    2 core matrices along k (kh_sub), 8 along n, 8 rows, 8 kw) bf16."""
+    w = F.pad(kernel.reshape(7, 7, 7, COUT), (0, 0, 0, 1, 0, 1))
+    # (kd, j, kh_sub, kw, p, r / 2, q, r % 2)
+    w = w.reshape(7, 4, 2, 8, 2, 4, 4, 2)
+    # -> (kd, j, kh_sub, p, q, r / 2, r % 2, kw)
+    w = w.permute(0, 1, 2, 4, 6, 5, 7, 3)
+    return w.reshape(7, 4, 2, 8, 8, 8).contiguous()
+
+
+def prepare_weights_bf16(kernel):
+    """The bf16 kernel's weight operand (see
+    :func:`prepare_weights_bf16_ref`), made by one small kernel of
+    ``csrc/stem_conv_bf16.cu`` for a CUDA tensor."""
+    if kernel.device.type == "cpu":
+        return prepare_weights_bf16_ref(kernel)
+    if kernel.device.type != "cuda":
+        raise ValueError(f"prepare_weights_bf16: unsupported device "
+                         f"{kernel.device}")
+    wp = torch.empty((7, 4, 2, 8, 8, 8), device=kernel.device,
+                     dtype=torch.bfloat16)
+    _build.launch("hp_stem_conv_bf16_prep", kernel.data_ptr(), wp.data_ptr(),
+                  device=kernel.device)
+    return wp
+
+
+def operand_b_bf16(wp):
+    """B of each (kd, k-step) as the MMA reads it through its descriptor:
+    (7, 4, 16 k, 64 columns)."""
+    return wp.reshape(7, 4, 1024)[..., b_offsets_bf16()]
+
+
+@functools.lru_cache(maxsize=1)
+def a_gather_bf16():
+    """Where the bf16 kernel's lanes load A from: for each warpgroup, k-step
+    j of a kd, row m and k slot of the MMA's A (64 x 16), the (hy, wx) of
+    the halo plane (hy 0..14: the tile's rows from -3 on and a row of
+    zeros; wx 0..22: its columns from -3 on, the last zeros), as (2, 4,
+    64, 16) each.  The halo holds 32-bit words of two neighbours along W,
+    (v(hy, c), v(hy, c + 1)); lane (g, t) of warp w loads the words of rows
+    2w .. 2w + 8 at column c = 8 wg + g + 2t and hands k-step j the A
+    fragment {row 2w + 2j, 2w + 2j + 1, 2w + 2j + 1, 2w + 2j + 2}: register
+    0 is (row 16w + g, k 2t, 2t + 1), 1 (16w + g + 8, 2t..), 2 (16w + g,
+    2t + 8..), 3 (16w + g + 8, 2t + 8..); the low half of a word is the
+    lower k."""
+    hy = torch.full((2, 4, 64, 16), -1, dtype=torch.long)
+    wx = torch.full((2, 4, 64, 16), -1, dtype=torch.long)
+    for wg in range(2):
+        for j in range(4):
+            for w in range(4):
+                for g in range(8):
+                    for t in range(4):
+                        for reg in range(4):
+                            row = 2 * w + 2 * j + (0, 1, 1, 2)[reg]
+                            m = 16 * w + g + 8 * (reg % 2)
+                            for half in range(2):
+                                k = 2 * t + half + 8 * (reg // 2)
+                                hy[wg, j, m, k] = row
+                                wx[wg, j, m, k] = 8 * wg + g + 2 * t + half
+    assert (hy >= 0).all() and (wx >= 0).all()  # every (m, k) loaded once
+    return hy, wx
+
+
+def stem_conv_bf16_tiled_ref(x, kernel, scale, shift, relu=True,
+                             out_dtype=torch.bfloat16):
+    """The bf16 kernel's bookkeeping in plain PyTorch: the block tiles of
+    each plane, the halo with its zero row and column, each warpgroup's A
+    gathered as its lanes load it (:func:`a_gather_bf16`), the B operands
+    of :func:`prepare_weights_bf16_ref` read back through the descriptor,
+    the four k-steps of a kd summed (f32 matrix products of bf16 values),
+    the seven kd partials added in order, the columns put back in channel
+    order, then the affine and ReLU in f32 and one rounding to
+    ``out_dtype``.  Same arguments and result as :func:`stem_conv_raw_ref`
+    on bf16 operands."""
+    b, d, h, w, _ = x.shape
+    th, tw = -(-h // TILE_H), -(-w // TILE_W)
+    pad = (3, 3 + tw * TILE_W - w + 1, 3, 3 + th * TILE_H - h + 1, 3, 3)
+    halo = F.pad(x[..., 0].float(), pad)
+    bmat = operand_b_bf16(prepare_weights_bf16_ref(kernel)).float()
+    hy, wx = a_gather_bf16()
+    ti = (torch.arange(th) * TILE_H).view(th, 1, 1, 1, 1, 1)
+    tj = (torch.arange(tw) * TILE_W).view(tw, 1, 1, 1, 1)
+    iy, ix = ti + hy, tj + wx
+    ib = torch.arange(b).view(b, 1, 1, 1, 1, 1, 1, 1)
+    acc = 0.0
+    for kd in range(7):
+        iz = (torch.arange(d) + kd).view(d, 1, 1, 1, 1, 1, 1)
+        a = halo[ib, iz, iy, ix]  # (b, d, th, tw, wg, j, m, k)
+        am = a.permute(0, 1, 2, 3, 4, 6, 5, 7).flatten(-2)
+        acc = acc + am @ bmat[kd].reshape(64, 64)
+    y = torch.empty_like(acc)
+    y[..., column_channels_bf16()] = acc
+    y = y.view(b, d, th, tw, 2, 4, 2, 8, COUT)
+    y = y.permute(0, 1, 2, 5, 6, 3, 4, 7, 8)
+    y = y.reshape(b, d, th * TILE_H, tw * TILE_W, COUT)[:, :, :h, :w]
+    y = y * scale + shift
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(out_dtype).contiguous()
+
+
+def stem_conv_raw_bf16(x, kernel, scale, shift, relu=True, out_dtype=None):
+    """The stem of the bfloat16 model: x (B, D, H, W, 1) and kernel
+    (7, 7, 7, 1, 64) DHWIO bfloat16, scale / shift (64,) float32.  Returns
+    relu(conv7^3(x) * scale + shift) as (B, D, H, W, 64) bfloat16: the
+    products exact, the sums, affine and ReLU in f32, one rounding.
+    ``out_dtype=torch.float32`` keeps the f32 result unrounded: a check's
+    form of the same kernel (a bf16 store would hide a fault of the sums),
+    never the model's."""
+    out_dtype = torch.bfloat16 if out_dtype is None else out_dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, "
+                         f"got {out_dtype}")
+    if x.dim() != 5 or x.shape[-1] != 1:
+        raise ValueError(f"x must be (B, D, H, W, 1), got {tuple(x.shape)}")
+    b, d, h, w, _ = x.shape
+    _build.no_grad_inputs("stem_conv_raw_bf16", x, kernel, scale, shift,
+                          use="the library conv (training has no fused stem)")
+    dev = x.device
+    _build.check(x, "x", device=dev, dtype=torch.bfloat16)
+    _build.check(kernel, "kernel", shape=(7, 7, 7, 1, COUT), device=dev,
+                 dtype=torch.bfloat16)
+    _build.check(scale, "scale", shape=(COUT,), device=dev, aligned=True)
+    _build.check(shift, "shift", shape=(COUT,), device=dev, aligned=True)
+    if dev.type == "cpu":
+        return stem_conv_raw_ref(x.float(), kernel, scale, shift,
+                                 relu).to(out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"stem_conv_raw_bf16: unsupported device {dev}")
+
+    wp = prepare_weights_bf16(kernel)
+    out = torch.empty((b, d, h, w, COUT), device=dev, dtype=out_dtype)
+    _build.launch(
+        "hp_stem_conv_bf16_fwd", x.data_ptr(), wp.data_ptr(),
+        scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b, d, h, w,
+        int(bool(relu)), int(out_dtype == torch.float32), device=dev)
+    stem_conv_raw_bf16.launches += 1
+    return out
+
+
+stem_conv_raw_bf16.launches = 0

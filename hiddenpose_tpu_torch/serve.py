@@ -13,11 +13,17 @@ forward, with no host sync) before it fetches batch N's joints, and the
 device never idles while the host packs and resolves.  All device work
 stays on the pump thread; callers only touch numpy and futures.
 
-Only ``dtype="float32"`` is ported so far.
+The default ``dtype`` is "bfloat16", the JAX server's default
+(``Config.with_bf16()``'s mixed precision); "float32" is the parity path.
+A bf16 server casts each request to bf16 on the host, before the pinned
+copy, as the JAX server's transfer dtype does: the model's first op rounds
+its input to bf16 anyway, so the answer is the same and the host-to-device
+bytes halve.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -27,7 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from hiddenpose_tpu_torch import resolve_device
+from hiddenpose_tpu_torch import as_dtype, resolve_device
 from hiddenpose_tpu_torch.config import Config, t128_config
 from hiddenpose_tpu_torch.models.nlospose import build_nlospose
 from hiddenpose_tpu_torch.train.step import make_forward
@@ -45,7 +51,8 @@ class InferenceServer:
         e.g. from ``utils.jax_bridge.state_dict_from_jax``; random weights
         from ``rng_seed`` when omitted.
     batch_size : the fixed batch every forward runs at.
-    dtype : 'float32' (the only precision ported so far).
+    dtype : the activation compute dtype; 'bfloat16' is the serving
+        default (as the JAX server's), 'float32' the parity path.
     max_wait_ms : how long the pump holds an open batch for more arrivals
         before flushing it padded.
     device : where the model runs; the GPU by default (raises without
@@ -58,15 +65,20 @@ class InferenceServer:
         state_dict=None,
         *,
         batch_size: int = 8,
-        dtype: str = "float32",
+        dtype: str = "bfloat16",
         max_wait_ms: float = 5.0,
         rng_seed: int = 0,
         device="cuda",
     ):
-        if dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={dtype!r}: only float32 serving is ported")
-        self.cfg = cfg if cfg is not None else t128_config()
+        cfg = cfg if cfg is not None else t128_config()
+        if dtype:
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, compute_dtype=dtype))
+        self.cfg = cfg
+        # the request's type on the wire: bf16 for a bf16 server
+        self._transfer_dtype = (torch.bfloat16
+                                if as_dtype(cfg.model.compute_dtype)
+                                == torch.bfloat16 else torch.float32)
         self.batch_size = int(batch_size)
         self.max_wait = float(max_wait_ms) / 1000.0
         self.device = resolve_device(device)
@@ -178,7 +190,7 @@ class InferenceServer:
             meas = np.stack(
                 [m for m, _ in reqs]
                 + [reqs[-1][0]] * (self.batch_size - len(reqs)))
-            x = torch.from_numpy(meas)
+            x = torch.from_numpy(meas).to(self._transfer_dtype)
             if self.device.type == "cuda":
                 x = x.pin_memory().to(self.device, non_blocking=True)
             else:

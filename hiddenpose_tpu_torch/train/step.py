@@ -36,6 +36,10 @@ def make_train_step(model: NlosPose, matmul_precision: str = "highest"):
     model in training mode, takes one Adam step on ``state`` (whose model
     must be ``model``) and returns the detached loss, joint_loss and
     voxel_loss of the forward before the update."""
+    if model.compute_dtype != torch.float32:
+        raise NotImplementedError(
+            "a bfloat16 model serves only: bf16 training is not ported "
+            "(ROADMAP Queue 1 item 4)")
     if matmul_precision != "highest":
         raise NotImplementedError(
             f"matmul_precision={matmul_precision!r}: only 'highest' (f32, "

@@ -1,11 +1,14 @@
 """Where the time of the port's t128 forward, train step and Sformer forward
 goes, on one GPU.
 
-    python3 scripts/torch_stage_profile.py
+    python3 scripts/torch_stage_profile.py [--dtype bfloat16]
 
 Run from the root of a checkout on a host with an NVIDIA GPU, with the
 weights and captures of ``chip_smoke.py`` (t128, batch 2, float32, TF32
-off).  It measures:
+off).  ``--dtype bfloat16`` measures the bfloat16 model instead
+(``Config.with_bf16()``, the servers' default): sections 1 and 2 only, the
+stages with its bf16 kernels and plain versions and its server's burst,
+and writes ``chiprun_out/torch_stage_profile_bf16.json``.  It measures:
 
 1. per stage of ``NlosPose.forward`` (FeatureExtraction, LCT, normalize,
    UNet, stem, layer1-4, head, soft-argmax), CUDA events around each
@@ -55,6 +58,11 @@ B = chip_smoke.B
 K4_KERNELS = ("conv3_tf32x3_kernel", "prep_kernel")
 # K2's conv and its weight preparation (csrc/stem_conv.cu), in the burst
 STEM_KERNELS = ("stem_conv_tc_kernel", "stem_weights_kernel")
+# the bf16 model's kernels: K4-bf16 and K2-bf16 with their weight
+# preparations, K1 (one kernel for both types), K3-bf16
+BF16_KERNELS = ("conv3_bf16_kernel", "prep_bf16_kernel",
+                "stem_conv_bf16_kernel", "stem_weights_bf16_kernel",
+                "conv3p_tile_kernel", "maxpool_k3s2p1_bf16_kernel")
 # K9's device kernels: the grouped form, the split over the keys (the
 # joint-token read) and the pass that combines its chunks.
 K9_KERNELS = ("attend_tc_kernel", "attend_tc_split_kernel", "combine_kernel")
@@ -243,22 +251,6 @@ def sformer_profile(dev, smi):
     return out
 
 
-def busy_seconds(events) -> float:
-    """Length of the union of the device events' [start, end) intervals."""
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted((ev.time_range.start, ev.time_range.end)
-                       for ev in events):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy / 1e6  # profiler times are in microseconds
-
-
 def device_profile(tag, fn, also=(), ops_like=None):
     """Run ``fn`` under torch.profiler; print and return wall time, device
     busy time, idle share, the 15 kernels with the most device time and the
@@ -277,7 +269,7 @@ def device_profile(tag, fn, also=(), ops_like=None):
         wall = time.perf_counter() - t0
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_seconds(kern)
+    busy = chip_smoke.busy_seconds(kern)
     by_kernel = {}
     for e in kern:
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
@@ -359,12 +351,21 @@ def main() -> int:
     from hiddenpose_tpu_torch.train.state import TrainState
     from hiddenpose_tpu_torch.train.step import make_train_step
 
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    args = ap.parse_args()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     smi = chip_smoke.smi_line()
     cfg, caps = chip_smoke.t128_captures(9)
     sd = chip_smoke.t128_weights(cfg)
+    bf16 = args.dtype == "bfloat16"
+    if bf16:
+        cfg = cfg.with_bf16()
     model, lct = build_nlospose(cfg.model, device=dev)
     model.load_state_dict(sd)
     meas = torch.from_numpy(np.stack(caps[:B])).to(dev)
@@ -385,16 +386,24 @@ def main() -> int:
                   flush=True)
     del model
 
-    server = InferenceServer(cfg, sd, batch_size=B, dtype="float32",
+    server = InferenceServer(cfg, sd, batch_size=B, dtype=args.dtype,
                              device=dev)
     try:
         server.warmup()
         burst = device_profile("burst", lambda: [
             f.result(timeout=600) for f in [server.submit(c) for c in caps]],
-            also=K4_KERNELS + STEM_KERNELS)
+            also=BF16_KERNELS if bf16 else K4_KERNELS + STEM_KERNELS)
     finally:
         server.close()
     del server
+    if bf16:
+        print(smi, flush=True)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "torch_stage_profile_bf16.json").write_text(json.dumps(dict(
+            device=smi, dtype=args.dtype, stages=stages,
+            burst=dict(requests=len(caps), **burst)), indent=1))
+        return 0
 
     model, lct = build_nlospose(cfg.model, device=dev)
     model.load_state_dict(sd)

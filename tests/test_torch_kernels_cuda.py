@@ -907,3 +907,201 @@ def test_probe_dot_long_k(dev, mkn):
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
     assert torch.equal(got, K.probe_dot_f32(a, b))
+
+
+# ------------------------------------------------ the bf16 serving kernels
+# K1-bf16 (conv3_planes_bf16), K2-bf16 (stem_conv_raw_bf16), K3-bf16
+# (maxpool3d_k3s2p1_bf16) and K4-bf16 (conv3_mxu_bf16) of the bfloat16
+# model.  Against the plain version (the bf16 operands widened, the f32 op,
+# one rounding) each output may differ by at most one bf16 ulp of the
+# plain one, plus 2^-16 of the largest output for sums that cancel near
+# zero; K3 is exact.  Two calls agree bit for bit.  K2 and K4 are also held
+# in their f32-output form against a float64 conv of the same bf16 values,
+# where they may err at most twice as much as the library's f32 conv (TF32
+# off) of the widened operands: a bf16 store would hide a fault of the sums.
+
+BF16_ATOL = 2.0 ** -16
+
+
+def _b(rng, shape, dev, scale=1.0):
+    return _t(rng, shape, dev, scale).to(torch.bfloat16)
+
+
+def _one_ulp(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    atol = BF16_ATOL * want.float().abs().max().item()
+    assert K.bf16_ulp_excess(got, want, atol) <= 0.0
+
+
+@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
+@pytest.mark.parametrize("act", ["none", "leaky"])
+@pytest.mark.parametrize("residual,pre", [(False, None), (True, True)])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 9, 13, 37),   # W % 8 != 0
+                                   (2, 4, 8, 7, 12, 32),   # 16-byte rows
+                                   (1, 1, 1, 16, 16, 16)])
+def test_conv3_planes_bf16(dev, shape, pad_mode, act, residual, pre):
+    rng = np.random.RandomState(21)
+    b, cin, cout, d, h, w = shape
+    x = _b(rng, (b, cin, d, h, w), dev)
+    k = _t(rng, (3, 3, 3, cin, cout), dev, 1.0 / np.sqrt(27 * cin))
+    bias = _t(rng, (cout,), dev, 0.1)
+    res = _b(rng, (b, cout, d, h, w), dev) if residual else None
+    ps = _t(rng, (cin,), dev) if pre is not None else None
+    pt = _t(rng, (cin,), dev) if pre is not None else None
+    kw = dict(act=act, pad_mode=pad_mode, pre_relu=pre)
+    got = _counted(K.conv3_planes_bf16,
+                   lambda: K.conv3_planes_bf16(x, k, bias, res, ps, pt, **kw))
+    _one_ulp(got, K.conv3_planes_ref(x, k, bias, res, ps, pt, **kw))
+    assert torch.equal(got, K.conv3_planes_bf16(x, k, bias, res, ps, pt,
+                                                **kw))
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 8), (8, 4), (16, 16), (32, 32)])
+def test_conv3_planes_bf16_channels(dev, cin, cout):
+    """The UNet's widths, on the tile plans they take at small volumes
+    (channel groups and split sums included)."""
+    rng = np.random.RandomState(22)
+    x = _b(rng, (2, cin, 8, 16, 16), dev)
+    k = _t(rng, (3, 3, 3, cin, cout), dev, 1.0 / np.sqrt(27 * cin))
+    bias = _t(rng, (cout,), dev, 0.1)
+    got = K.conv3_planes_bf16(x, k, bias, act="relu")
+    _one_ulp(got, K.conv3_planes_ref(x, k, bias, act="relu"))
+
+
+@pytest.mark.parametrize("shape", [(1, 12, 20, 36), (2, 16, 16, 16),
+                                   (1, 5, 6, 7), (1, 9, 17, 33),
+                                   (2, 40, 9, 23), (1, 1, 1, 1)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_stem_conv_bf16(dev, shape, relu):
+    rng = np.random.RandomState(23)
+    x, k, scale, shift = _stem_inputs(rng, shape, dev)
+    x, k = x.to(torch.bfloat16), k.to(torch.bfloat16)
+    got = _counted(K.stem_conv_raw_bf16,
+                   lambda: K.stem_conv_raw_bf16(x, k, scale, shift, relu))
+    _one_ulp(got, K.stem_conv_raw_ref(x, k, scale, shift, relu))
+    assert torch.equal(got, K.stem_conv_raw_bf16(x, k, scale, shift, relu))
+
+
+def test_stem_conv_bf16_against_float64(dev):
+    """The f32-output form, one bf16 pass with f32 sums a kd at a time:
+    at most twice the library f32 conv's error against float64; the
+    weight operand bit for bit the plain version's."""
+    from hiddenpose_tpu_torch.ops.kernels import stem_conv
+
+    rng = np.random.RandomState(24)
+    x, k, scale, shift = _stem_inputs(rng, (2, 24, 20, 40), dev)
+    x = x.to(torch.bfloat16)
+    k = (k / 0.05 * 343 ** -0.5).to(torch.bfloat16)
+    got = K.stem_conv_raw_bf16(x, k, scale, shift, False,
+                               out_dtype=torch.float32)
+    want = K.stem_conv_raw_ref(x.float(), k, scale, shift, relu=False)
+    want64 = F.conv3d(x.double().permute(0, 4, 1, 2, 3),
+                      k.double().permute(4, 3, 0, 1, 2), padding=3)
+    want64 = want64.permute(0, 2, 3, 4, 1) * scale.double() + shift.double()
+    err, err_plain = ((t.double() - want64).abs().max().item()
+                      for t in (got, want))
+    assert err <= 2 * err_plain, (err, err_plain)
+    assert torch.equal(stem_conv.prepare_weights_bf16(k),
+                       stem_conv.prepare_weights_bf16_ref(k))
+
+
+K4_BF16_CASES = [(2, 16, 16, 16, 64), (1, 8, 8, 8, 128), (2, 6, 6, 6, 256),
+                 (1, 5, 6, 7, 64), (1, 5, 6, 7, 128), (1, 3, 4, 5, 64)]
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("shape", K4_BF16_CASES)
+def test_conv3_mxu_bf16(dev, shape, epilogue):
+    """Against the plain version within one bf16 ulp, twice bit for bit,
+    and in its f32-output form against float64 (at most twice the
+    library f32 conv's error)."""
+    rng = np.random.RandomState(25)
+    c = shape[4]
+    x = _b(rng, shape, dev)
+    k = _b(rng, (3, 3, 3, c, c), dev, 1.0 / np.sqrt(27 * c))
+    sc = _t(rng, (c,), dev).abs() + 0.5 if epilogue else None
+    sh = _t(rng, (c,), dev, 0.1) if epilogue else None
+    got = _counted(K.conv3_mxu_bf16,
+                   lambda: K.conv3_mxu_bf16(x, k, sc, sh, relu=epilogue))
+    _one_ulp(got, K.conv3_mxu_ref(x, k, sc, sh, relu=epilogue))
+    assert torch.equal(got, K.conv3_mxu_bf16(x, k, sc, sh, relu=epilogue))
+    f32 = K.conv3_mxu_bf16(x, k, sc, sh, relu=epilogue,
+                           out_dtype=torch.float32)
+    want = K.conv3_mxu_ref(x.float(), k.float(), sc, sh, relu=epilogue)
+    want64 = _conv64(x, k)
+    if epilogue:
+        want64 = torch.clamp_min(want64 * sc.double() + sh.double(), 0.0)
+    err, err_plain = ((t.double() - want64).abs().max().item()
+                      for t in (f32, want))
+    assert err <= 2 * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 128), (96, 64),
+                                      (256, 128)])
+def test_conv3_mxu_bf16_rectangular_channels(dev, cin, cout):
+    """C_in != C_out, and C_in of one 32-channel unit a tap (the one-unit
+    stages) or an odd number of units."""
+    rng = np.random.RandomState(28)
+    x = _b(rng, (1, 4, 5, 9, cin), dev)
+    k = _b(rng, (3, 3, 3, cin, cout), dev, 1.0 / np.sqrt(27 * cin))
+    _one_ulp(K.conv3_mxu_bf16(x, k), K.conv3_mxu_ref(x, k))
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (32, 128), (256, 256)])
+def test_conv3_mxu_bf16_weight_preparation(dev, cin, cout):
+    rng = np.random.RandomState(26)
+    k = _b(rng, (3, 3, 3, cin, cout), dev)
+    got = conv3mxu.prepare_weights_bf16(k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, conv3mxu.prepare_weights_bf16_ref(k))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "negative"])
+@pytest.mark.parametrize("shape", [(1, 9, 10, 11, 64), (2, 16, 16, 16, 8)])
+def test_maxpool_bf16(dev, shape, kind):
+    rng = np.random.RandomState(27)
+    y = _b(rng, shape, dev)
+    if kind == "ties":
+        y = torch.clamp_min(y, 0.0)
+    elif kind == "negative":
+        y = -y.abs() - 1.0
+    got = _counted(K.maxpool3d_k3s2p1_bf16,
+                   lambda: K.maxpool3d_k3s2p1_bf16(y))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, K.maxpool3d_k3s2p1_ref(y))
+    assert torch.equal(got, K.maxpool3d_k3s2p1_bf16(y))
+
+
+def test_bf16_wrappers_raise_rather_than_fall_back(dev):
+    """A wrong dtype or layout raises on the GPU: no quiet upcast to the
+    f32 kernel, no quiet plain version."""
+    xb = torch.zeros((1, 4, 4, 4, 64), device=dev, dtype=torch.bfloat16)
+    kb = torch.zeros((3, 3, 3, 64, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        K.conv3_mxu_bf16(xb.float(), kb)              # f32 input
+    with pytest.raises(TypeError):
+        K.conv3_mxu(xb, kb)                           # bf16 into the f32 K4
+    with pytest.raises(ValueError):
+        K.conv3_mxu_bf16(xb.transpose(1, 2), kb)      # not contiguous
+    with pytest.raises(ValueError):
+        K.conv3_mxu_bf16(xb[..., :48].contiguous(),   # C_in % 32 != 0
+                         kb[:, :, :, :48].contiguous())
+    xs = torch.zeros((1, 8, 8, 8, 1), device=dev, dtype=torch.bfloat16)
+    ks = torch.zeros((7, 7, 7, 1, 64), device=dev, dtype=torch.bfloat16)
+    s = torch.ones(64, device=dev)
+    with pytest.raises(TypeError):
+        K.stem_conv_raw_bf16(xs.float(), ks, s, s)
+    with pytest.raises(TypeError):
+        K.stem_conv_raw(xs, ks, s, s)
+    xp = torch.zeros((1, 4, 6, 6, 6), device=dev, dtype=torch.bfloat16)
+    kp = torch.zeros((3, 3, 3, 4, 4), device=dev)
+    with pytest.raises(TypeError):
+        K.conv3_planes_bf16(xp, kp, residual=xp.float())  # f32 residual
+    with pytest.raises(TypeError):
+        K.conv3_planes(xp, kp)
+    with pytest.raises(ValueError):
+        K.maxpool3d_k3s2p1_bf16(xb[..., :12].contiguous())  # C % 8 != 0
+    with pytest.raises(TypeError):
+        K.maxpool3d_k3s2p1(xb)

@@ -24,6 +24,10 @@ MODULES = [
     "hiddenpose_tpu_torch.ops.normalize",
     "hiddenpose_tpu_torch.ops.softargmax",
     "hiddenpose_tpu_torch.ops.kernels",
+    "hiddenpose_tpu_torch.ops.kernels.conv3p",
+    "hiddenpose_tpu_torch.ops.kernels.conv3mxu",
+    "hiddenpose_tpu_torch.ops.kernels.stem_conv",
+    "hiddenpose_tpu_torch.ops.kernels.phase_pool",
     "hiddenpose_tpu_torch.ops.kernels.pool2p",
     "hiddenpose_tpu_torch.ops.kernels.attn",
     "hiddenpose_tpu_torch.ops.kernels.probes",

@@ -4,7 +4,9 @@
 identical to a direct forward however requests pack into batches, partial
 batches flush padded, concurrent submitters all resolve, close() drains.
 And on the same (bridged) weights the port's server returns the JAX
-server's joints, within 1e-4 voxel (f32 on both sides).
+server's joints, within 1e-4 voxel (f32 on both sides).  These are the
+float32 server's contract, so the servers here ask for ``dtype="float32"``
+(both servers default to bf16: ``tests/test_torch_bf16_serve.py``).
 
 Both servers run the port's peaked random weights
 (``hiddenpose_tpu_torch.utils.peaked``): with the reference init every
@@ -56,7 +58,8 @@ def _spread(joints):
 @pytest.fixture(scope="module")
 def server():
     srv = InferenceServer(CFG, state_dict_from_jax(_jax_variables()),
-                          batch_size=4, max_wait_ms=20.0, device="cpu")
+                          batch_size=4, dtype="float32", max_wait_ms=20.0,
+                          device="cpu")
     yield srv
     srv.close()
 
@@ -121,11 +124,6 @@ def test_close_drains_and_rejects():
     srv.close()  # idempotent
 
 
-def test_only_float32_is_ported():
-    with pytest.raises(NotImplementedError):
-        InferenceServer(CFG, batch_size=2, dtype="bfloat16", device="cpu")
-
-
 def test_matches_jax_server_on_bridged_weights():
     """Peaked JAX weights -> bridge -> port server; both servers answer
     the same captures (5 requests at batch 2: a padded tail on both)."""
@@ -134,7 +132,7 @@ def test_matches_jax_server_on_bridged_weights():
     jsrv = JaxServer(CFG, variables, batch_size=2, dtype="float32",
                      max_wait_ms=1.0)
     psrv = InferenceServer(CFG, state_dict_from_jax(variables), batch_size=2,
-                           max_wait_ms=1.0, device="cpu")
+                           dtype="float32", max_wait_ms=1.0, device="cpu")
     try:
         want = [f.result(timeout=300)["joints"]
                 for f in [jsrv.submit(m) for m in meas]]

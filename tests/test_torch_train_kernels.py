@@ -334,6 +334,18 @@ def _raw_calls():
             torch.zeros((1, 4, 4, 4, 1)),
             torch.zeros((7, 7, 7, 1, 64), requires_grad=True),
             torch.ones(64), torch.zeros(64)),
+        "conv3_planes_bf16": lambda: K.conv3_planes_bf16(
+            x.detach().bfloat16().requires_grad_(), k),
+        "conv3_mxu_bf16": lambda: K.conv3_mxu_bf16(
+            xm.detach().bfloat16().requires_grad_(), km.bfloat16()),
+        "maxpool3d_k3s2p1_bf16": lambda: K.maxpool3d_k3s2p1_bf16(
+            torch.zeros((1, 4, 4, 4, 8), dtype=torch.bfloat16,
+                        requires_grad=True)),
+        "stem_conv_raw_bf16": lambda: K.stem_conv_raw_bf16(
+            torch.zeros((1, 4, 4, 4, 1), dtype=torch.bfloat16),
+            torch.zeros((7, 7, 7, 1, 64), dtype=torch.bfloat16,
+                        requires_grad=True),
+            torch.ones(64), torch.zeros(64)),
         "attend": lambda: K.attend(
             torch.zeros((1, 4, 8), requires_grad=True),
             torch.zeros((1, 6, 8)), torch.zeros((1, 6, 8))),
@@ -361,8 +373,9 @@ def test_raw_wrappers_refuse_inputs_that_require_grad(name):
 
 
 def test_every_kernel_is_listed():
-    assert set(K.KERNELS) == (set(K.SERVING) | set(K.TRAINING)
-                              | set(K.SFORMER) | set(K.PROBES))
+    assert set(K.KERNELS) == (set(K.SERVING) | set(K.SERVING_BF16)
+                              | set(K.TRAINING) | set(K.SFORMER)
+                              | set(K.PROBES))
     assert set(K.KERNELS) == set(_raw_calls())
     for name, (wrapper, ref, source, replaces) in K.KERNELS.items():
         assert wrapper.launches >= 0 and callable(ref), name
