@@ -12,15 +12,17 @@ __device__ __forceinline__ float bf16_widen(uint32_t v) {
   return __uint_as_float(v << 16);
 }
 
-// f32 -> bf16 bits, rounding to nearest even (torch's conversion); a NaN
-// stays a NaN.
+// f32 -> bf16 bits, rounding to nearest even (torch's conversion), by one
+// cvt instruction; a NaN stays a NaN.
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
-  const uint32_t u = __float_as_uint(v);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
-  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+  uint16_t r;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(r) : "f"(v));
+  return r;
 }
 
-// Two f32 values as a bf16 pair, `lo` in the low half.
+// Two f32 values as a bf16 pair, `lo` in the low half (one cvt).
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }

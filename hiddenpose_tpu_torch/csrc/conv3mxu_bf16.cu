@@ -14,270 +14,359 @@
 // What bounds it on the card: an implicit GEMM, M = B*D*H*W output voxels,
 // N = C_out, K = 27*C_in, hundreds of FLOP per byte, so bf16 MMA issue
 // (6.67e11 FLOP for one t128 batch-2 forward's eleven calls, 0.67 ms at
-// 989 TFLOP/s).  The design is the f32 K4's (conv3mxu.cu) with one pass in
-// place of three:
-//  - wgmma m64n64k16 bf16, one warpgroup per 64 output rows, A from
-//    registers, B from shared memory by descriptor.  A unit is 32 input
-//    channels of one tap, two k-steps; k slot k of k-step s is channel
-//    8 ((k % 8) / 2) + 4s + 2 (k / 8) + k % 2 of the unit, so a lane's A of
-//    both k-steps is one 16-byte shared-memory read per row (its rows g and
-//    g + 8, channels 8t .. 8t + 7), and no conversion.
-//  - A ring of shared-memory stages filled by cp.async 16-byte copies, SUB
-//    units (64 channels where C_in % 64 == 0) a stage.  An A tile (the
-//    implicit im2col rows, contiguous in channels-last x) goes straight
-//    from x to shared memory, zero-filled where the tap leaves the volume.
-//    The weights arrive laid out in the wgmma's core-matrix order (a
-//    unit's B is one contiguous 4 KB copy).  One cp.async.wait_group, one
-//    fence.proxy.async and one barrier per stage; the next stages are in
-//    flight while the MMAs run.  The layer's input is rounded to bf16 by
-//    the caller in a separate pass (after bn1 and ReLU in f32): a cp.async
-//    copies bytes and cannot round.
+// 989 TFLOP/s).  Before it, what the SMs copy from L2 into shared memory:
+// an implicit GEMM that gathers A per tap copies each input voxel 27 times
+// per 64 output channels, and one that reads B per 128-row tile copies
+// the weights once per 128 voxels; at about 24 bytes a clock an SM, that
+// traffic alone caps such a kernel at a quarter of the bf16 peak.  So:
+//  - A tile is 256 output voxels of one output plane, TH x TW (8 x 32,
+//    16 x 16 or 32 x 8: the wrapper picks the one that W fills), by 64
+//    output channels.  Its work is cut into stages of one input plane kd
+//    and 32 input channels: the stage's (TH + 2) x (TW + 2) halo of that
+//    plane (64 bytes a voxel) is copied into shared memory once, by one
+//    TMA box of a tensor map over x that reads zeros outside the volume,
+//    with the B operands of its nine (kh, kw) taps, one bulk copy of a
+//    contiguous 36 KB run of the prepared weights.  The nine taps read
+//    their A rows from the one halo: L2-to-shared traffic for A falls from
+//    27x the input to 3 x 1.3x, for B by half.  The kd planes outside the
+//    volume are skipped.
+//  - wgmma m64n64k16 bf16, four warpgroups a block, each an 8 x 8 patch of
+//    the tile, A from registers (a halo row at any tap offset is a legal A
+//    row), B from shared memory by descriptor.  k slot k of k-step s is
+//    input channel 8 ((k % 8) / 2) + 4s + 2 (k / 8) + k % 2 of the stage's
+//    32, so a lane's A of both k-steps is one 16-byte shared-memory read
+//    per row (channels 8t .. 8t + 7), and no conversion.  A lane's rows g
+//    and g + 8 are one column, H rows y and y + 1, so its four reads of a
+//    kw feed the kw's three taps (12 reads a stage, not 18).  Two
+//    neighbouring voxels of the halo are 64 bytes apart: the eight lanes
+//    of one read phase hit 32 distinct banks.  A read is issued once the
+//    MMAs that last read its registers are done, while the others run.
+//  - A ring of 3 stages, two in flight while one is multiplied.  Thread 0
+//    issues a stage's two copies once every warp has left the slot (the
+//    slot's empty mbarrier, one arrival a warp); they complete on its full
+//    mbarrier, which every warp waits for: no barrier of the block, 18 MMAs
+//    a warpgroup a stage.  One persistent block a SM walks its tiles, the
+//    copies running on across tiles.  The layer's input is rounded to bf16
+//    by the caller in a separate pass (after bn1 and ReLU in f32): a copy
+//    moves bytes and cannot round.
 //  - f32 sums that round to nearest.  The tensor core truncates its f32
-//    accumulator, so the MMAs of one stage sum into a fresh partial
-//    (scale_d = 0 on the first), the partial is added to a register
-//    accumulator by an f32 add, and every FLUSH stages that accumulator is
-//    added to the tile's running sum in shared memory, as in the f32 K4.
-//  - One tile shape: 128 x 64, two warpgroups, 3 stages, 104 KB of shared
-//    memory with the running sums: two blocks a SM.
+//    accumulator, so the 18 MMAs of a stage (9 taps x 2 k-steps: 288
+//    products a partial) sum into a fresh partial (scale_d = 0 on the
+//    first), which an f32 add puts into the register accumulator: 3 C_in /
+//    32 partials in all.
+//  - 176 KB of shared memory, 512 threads: one block a SM.
 //  - Epilogue: column r of n-tile 4p + q is output channel 32p + 8(r / 2) +
 //    2q + r % 2, so a lane's accumulators of four n-tiles are 8
-//    consecutive channels: affine, ReLU, one rounding, one 16-byte store.
+//    consecutive channels: affine, ReLU, one rounding (cvt), one 16-byte
+//    store.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cp_async.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-constexpr int BK = 32;       // input channels of one tap per unit
-constexpr int WG = 2;        // warpgroups a block, each 64 rows
+constexpr int BK = 32;        // input channels of a stage
+constexpr int WG = 4;         // warpgroups a block, each 64 rows
 constexpr int NT = 128 * WG;
-constexpr int BM = 64 * WG;
-constexpr int BN = 64;       // the wgmma's n
+constexpr int BM = 64 * WG;   // output voxels of a block's tile
+constexpr int BN = 64;        // the wgmma's n
 constexpr int STAGES = 3;
-constexpr int A_UNIT = BM * BK;      // bf16
-constexpr int B_UNIT = 2 * 16 * BN;  // bf16: two k-steps
-constexpr int A_COPIES = BM * BK * 2 / 16 / NT;  // 16-byte copies a thread
-constexpr int B_COPIES = B_UNIT * 2 / 16 / NT;
-constexpr int FLUSH = 8;     // units summed in registers between flushes
-__host__ __device__ constexpr int smem_bytes(int sub) {
-  return STAGES * sub * (A_UNIT + B_UNIT) * 2 + 32 * NT * 4;
+constexpr int HALO_MAX = 10 * 34;  // (TH + 2) (TW + 2) of 8 x 32, 32 x 8
+constexpr int A_STAGE = HALO_MAX * BK;    // bf16
+constexpr int TAP_B = 2 * 16 * BN;        // bf16: a tap's two k-steps
+constexpr int B_STAGE = 9 * TAP_B;        // bf16: the stage's nine taps
+constexpr int B_ROWS = B_STAGE * 2 / 16;  // 16-byte rows of a stage's B
+constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) * 2 + 16 * STAGES;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// wp: the prepared weights, for each (unit, 64-wide n-block) the two
-// k-steps' B, each 2 x 8 core matrices, 4 KB in all.
-template <int SUB, bool F32OUT>
-__global__ void __launch_bounds__(NT, 2)
-conv3_bf16_kernel(const uint16_t* __restrict__ x, const uint4* __restrict__ wp,
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// The one arrival of a stage's mbarrier, which also expects `bytes` from
+// the copies into its slot.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// A bulk copy of `bytes` (a multiple of 16) from global src to shared dst,
+// completing on the mbarrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The tensor map's box at coordinates (c, w, h, plane) into shared dst,
+// completing on the mbarrier; the box's voxels outside the tensor read 0.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c, int w, int h, int plane,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h),
+      "r"(plane), "r"(bar)
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` of the mbarrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+
+// A tile of the call: batch b, output plane d, the th x tw voxels at (h0,
+// w0), output channels 64 nb on; tiles are numbered W-tile fastest, then
+// H-tile, plane, batch, n-block (tile_at decodes one n-block's index).
+struct Tile {
+  int b, d, h0, w0, nb;
+};
+
+__device__ __forceinline__ Tile tile_at(int i, int D, int tiles_h,
+                                        int tiles_w, int th, int tw) {
+  Tile u;
+  u.w0 = (i % tiles_w) * tw;
+  i /= tiles_w;
+  u.h0 = (i % tiles_h) * th;
+  i /= tiles_h;
+  u.d = i % D;
+  u.b = i / D;
+  u.nb = 0;
+  return u;
+}
+
+// x: the tensor map of the input, (C_in, W, H, B D) bf16, box (32, tw + 2,
+// th + 2, 1).  wp: the prepared weights, for each stage (kd, 32-channel
+// block c) and 64-wide n-block its nine taps' B (kh, kw), each two
+// k-steps of 2 x 8 core matrices, 36 KB in all.  Persistent blocks: block
+// i takes tiles i, i + gridDim.x, ...; its loader (thread 0) runs
+// STAGES - 1 stages ahead of the MMAs across tiles, so a tile's first
+// stages land while the last one is multiplied and its epilogue runs.
+template <bool F32OUT>
+__global__ void __launch_bounds__(NT, 1)
+conv3_bf16_kernel(const __grid_constant__ CUtensorMap x,
+                  const uint4* __restrict__ wp,
                   const float* __restrict__ scale,
                   const float* __restrict__ shift, void* __restrict__ out,
-                  int B, int D, int H, int W, int cin, int cout, int relu) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* const As = reinterpret_cast<uint16_t*>(smem);  // [st][sub][row][32]
-  uint16_t* const Bs = As + STAGES * SUB * A_UNIT;
-  float4* const sum =
-      reinterpret_cast<float4*>(Bs + STAGES * SUB * B_UNIT) + threadIdx.x;
+                  int B, int D, int H, int W, int cin, int cout, int relu,
+                  int th, int tw) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint16_t* const As = reinterpret_cast<uint16_t*>(smem);  // [st][voxel][32]
+  uint16_t* const Bs = As + STAGES * A_STAGE;              // [st][tap][...]
+  // a slot's mbarriers: full (its copies have landed), empty (every warp
+  // is done reading it)
+  const uint32_t full = smem_u32(Bs + STAGES * B_STAGE);
+  const uint32_t empty = full + 8 * STAGES;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;  // 4 warps a warpgroup, each 16 rows
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;  // 4 warps a warpgroup, each 16 rows
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int64_t M = (int64_t)B * D * H * W;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int hp = tw + 2;           // halo voxels a row
+  const int tiles_w = (W + tw - 1) / tw;
+  const int tiles_h = (H + th - 1) / th;
+  const int per_nb = B * D * tiles_h * tiles_w;  // tiles of one n-block
+  const int ntiles = per_nb * (cout / BN);
+  const int c32 = cin / BK;
+  const int nblocks = cout / BN;
+  const uint32_t a_bytes = (th + 2) * hp * BK * 2;  // a stage's halo
+  // the stages of a tile: input plane d + kd - 1 for the kd inside the
+  // volume, then 32-channel block c
+  auto kd_lo = [&](const Tile& u) { return u.d == 0 ? 1 : 0; };
+  auto kd_hi = [&](const Tile& u) { return u.d == D - 1 ? 2 : 3; };
+  auto tile = [&](int i) {
+    Tile u = tile_at(i % per_nb, D, tiles_h, tiles_w, th, tw);
+    u.nb = i / per_nb;
+    return u;
+  };
 
-  // The A rows this thread copies: row (tid / 4) + i * NT / 4, 16-byte part
-  // tid % 4 (8 channels).  Per row the address of its own voxel and the
-  // taps that stay inside the volume (a row past M has none).
-  const int part = tid & 3;
-  const uint16_t* a_src[A_COPIES];
-  uint32_t a_taps[A_COPIES];
-#pragma unroll
-  for (int i = 0; i < A_COPIES; ++i) {
-    const int64_t m = m0 + (tid >> 2) + i * (NT / 4);
-    a_src[i] = x + part * 8;
-    a_taps[i] = 0;
-    if (m < M) {
-      a_src[i] += m * cin;
-      int64_t r = m;
-      const int vw = (int)(r % W);
-      r /= W;
-      const int vh = (int)(r % H);
-      r /= H;
-      const int vd = (int)(r % D);
-      for (int tap = 0; tap < 27; ++tap) {
-        const int id = vd + tap / 9 - 1;
-        const int ih = vh + (tap / 3) % 3 - 1;
-        const int iw = vw + tap % 3 - 1;
-        if (id >= 0 && id < D && ih >= 0 && ih < H && iw >= 0 && iw < W)
-          a_taps[i] |= 1u << tap;
-      }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, NT / 32);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const int units_per_tap = cin / BK;
-  const int iters = 27 * units_per_tap / SUB;  // stages to run
-  const int64_t b_step = (int64_t)(cout / BN) * (B_UNIT * 2 / 16);  // uint4s
-
-  // The loader walks the units in order, STAGES - 1 stages ahead of the
-  // MMAs: tap, channel block and slot advance by increments.
-  auto tap_offset = [&](int tap) {
-    return (((tap / 9 - 1) * H + (tap / 3) % 3 - 1) * W + tap % 3 - 1) * cin;
-  };
-  int ld_left = iters, ld_slot = 0, ld_tap = 0, ld_c = 0;
-  int ld_off = tap_offset(0);
-  const uint4* ld_b = wp + (int64_t)(n0 / BN) * (B_UNIT * 2 / 16) + tid;
+  // The loader, thread 0: tile ld_i, stage (ld_kd, ld_c); a stage is the
+  // halo of input plane d + kd - 1, channels 32c .. 32c + 31 (one box of
+  // the tensor map, zero outside the volume) and its B (one bulk copy).
+  int ld_i = blockIdx.x, ld_slot = 0, ld_kd = 0, ld_c = 0, ld_j = 0;
+  Tile ld;
+  if (tid == 0 && ld_i < ntiles) {
+    ld = tile(ld_i);
+    ld_kd = kd_lo(ld);
+  }
   auto load_stage = [&]() {
-    if (ld_left > 0) {
-      --ld_left;
-#pragma unroll
-      for (int sub = 0; sub < SUB; ++sub) {
-        const uint32_t a_dst = smem_u32(As + (ld_slot * SUB + sub) * A_UNIT +
-                                        (tid >> 2) * BK + part * 8);
-#pragma unroll
-        for (int i = 0; i < A_COPIES; ++i) {
-          const bool in = (a_taps[i] >> ld_tap) & 1u;
-          cp_async16(a_dst + i * (NT / 4) * BK * 2,
-                     in ? a_src[i] + ld_off : a_src[i], in);
-        }
-        const uint32_t b_dst =
-            smem_u32(Bs + (ld_slot * SUB + sub) * B_UNIT + tid * 8);
-#pragma unroll
-        for (int i = 0; i < B_COPIES; ++i)
-          cp_async16(b_dst + i * NT * 16, ld_b + i * NT, true);
-        ld_b += b_step;
-        ld_off += BK;
-        if (++ld_c == units_per_tap) {
-          ld_c = 0;
-          ld_off = tap_offset(++ld_tap);
+    if (tid == 0 && ld_i < ntiles) {
+      // stage ld_j refills the slot of stage ld_j - STAGES: once every warp
+      // is done with it
+      if (ld_j >= STAGES)
+        mbar_wait(empty + 8 * ld_slot, ((ld_j / STAGES) + 1) & 1);
+      ++ld_j;
+      const uint32_t bar = full + 8 * ld_slot;
+      mbar_expect(bar, a_bytes + B_STAGE * 2);
+      tma_load(smem_u32(As + ld_slot * A_STAGE), &x, ld_c * BK, ld.w0 - 1,
+               ld.h0 - 1, ld.b * D + ld.d + ld_kd - 1, bar);
+      bulk_load(smem_u32(Bs + ld_slot * B_STAGE),
+                wp + ((int64_t)(ld_kd * c32 + ld_c) * nblocks + ld.nb) * B_ROWS,
+                B_STAGE * 2, bar);
+      if (++ld_slot == STAGES) ld_slot = 0;
+      if (++ld_c == c32) {
+        ld_c = 0;
+        if (++ld_kd == kd_hi(ld)) {
+          ld_i += gridDim.x;
+          if (ld_i < ntiles) {
+            ld = tile(ld_i);
+            ld_kd = kd_lo(ld);
+          }
         }
       }
-      if (++ld_slot == STAGES) ld_slot = 0;
     }
-    cp_async_commit();
   };
+
+  // The rows of this lane: warpgroup wg owns the tile's 8 x 8 patch wg,
+  // warp w its rows 2w and 2w + 1; the lane's rows g and g + 8 are the
+  // tile voxels (y0, x0) and (y0 + 1, x0), whose tap (kh, kw) reads halo
+  // voxels (y0 + kh, x0 + kw) and (y0 + kh + 1, x0 + kw).
+  const int y0 = (wg / (tw / 8)) * 8 + 2 * warp;
+  const int x0 = (wg % (tw / 8)) * 8 + g;
+  const int a_base = (y0 * hp + x0) * BK + t * 8;
 
   float acc[32], psum[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = psum[i] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) load_stage();
 
-  int pending = 0, slot = 0;
-  for (int it = 0; it < iters; ++it) {
-    // Stage `it` has landed, for every thread after the barrier and for the
-    // async proxy after the fence; the barrier also says that every warp is
-    // done with the stage before, which is refilled now.
-    cp_async_wait<STAGES - 2>();
-    fence_proxy_async();
-    __syncthreads();
+  // The MMAs: tile ci, its stage `left` stages from the end; `use` counts
+  // the stages of the block (the mbarrier's phase).
+  int ci = blockIdx.x, slot = 0, use = 0;
+  int left = 0;
+  if (ci < ntiles) {
+    const Tile u = tile(ci);
+    left = (kd_hi(u) - kd_lo(u)) * c32;
+  }
+  while (ci < ntiles) {
+    // Thread 0 refills the slot of the stage before once every warp is done
+    // with it; stage `use` has landed once its full mbarrier's phase has
+    // completed.  No barrier: a warp runs ahead until a slot it needs.
     load_stage();
+    mbar_wait(full + 8 * slot, (use / STAGES) & 1);
+    __syncwarp();  // the MMAs below are warp-collective
 
-    // A of both k-steps of a unit: rows g and g + 8, channels 8t .. 8t + 7
-    uint32_t a[SUB][2][4];
+    // The nine taps, kw by kw.  Tap (kh, kw)'s A of both k-steps (rows g
+    // and g + 8, channels 8t .. 8t + 7) is halo rows y0 + kh and y0 + kh + 1
+    // at column x0 + kw, so the four 16-byte loads L[0..3] of a kw feed its
+    // three taps, two MMAs each, a commit group a tap.  L[i] was last read
+    // by taps i - 1 and i of the kw before (or of the stage before): it is
+    // reloaded once those MMAs are done, while the others run.  All 18 MMAs
+    // of the stage sum into one fresh partial.
+    const uint16_t* const as = As + slot * A_STAGE + a_base;
+    const uint16_t* const bs = Bs + slot * B_STAGE;
+    uint4 L[4];
 #pragma unroll
-    for (int sub = 0; sub < SUB; ++sub) {
-      const uint16_t* as =
-          As + (slot * SUB + sub) * A_UNIT + (warp * 16 + g) * BK + t * 8;
-      const uint4 r0 = *reinterpret_cast<const uint4*>(as);
-      const uint4 r1 = *reinterpret_cast<const uint4*>(as + 8 * BK);
-      a[sub][0][0] = r0.x;
-      a[sub][0][1] = r1.x;
-      a[sub][0][2] = r0.y;
-      a[sub][0][3] = r1.y;
-      a[sub][1][0] = r0.z;
-      a[sub][1][1] = r1.z;
-      a[sub][1][2] = r0.w;
-      a[sub][1][3] = r1.w;
-    }
-    wgmma_fence();
+    for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
-    for (int sub = 0; sub < SUB; ++sub) {
-      const uint16_t* bs = Bs + (slot * SUB + sub) * B_UNIT;
-#pragma unroll
-      for (int s = 0; s < 2; ++s)
-        wgmma_bf16(psum, a[sub][s], desc_bf16(bs + s * 16 * BN, 1024, 128),
-                   sub + s > 0);
-    }
-    wgmma_commit();
+      for (int i = 0; i < 4; ++i) {
+        if (i == 0) {
+          wgmma_wait<2>();
+        } else if (i < 3) {
+          wgmma_wait<1>();
+        }
+        L[i] = *reinterpret_cast<const uint4*>(as + (i * hp + kw) * BK);
+        if (i == 0) continue;
+        const int kh = i - 1;
+        const uint32_t a0[4] = {L[kh].x, L[i].x, L[kh].y, L[i].y};
+        const uint32_t a1[4] = {L[kh].z, L[i].z, L[kh].w, L[i].w};
+        const uint16_t* const b = bs + (kh * 3 + kw) * 2 * 16 * BN;
+        wgmma_fence();
+        wgmma_bf16(psum, a0, desc_bf16(b, 1024, 128), kh + kw > 0);
+        wgmma_bf16(psum, a1, desc_bf16(b + 16 * BN, 1024, 128), 1);
+        wgmma_commit();
+      }
     wgmma_wait();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] += psum[i];
     if (++slot == STAGES) slot = 0;
+    ++use;
+    if (--left > 0) continue;
 
-    // The second level: every FLUSH units `acc` is added to the tile's
-    // running sum, which lives in shared memory, 8 float4 a thread, each
-    // thread its own; after the last stage the sum comes back into `acc`.
-    const bool last = it == iters - 1;
-    if (++pending == FLUSH / SUB || last) {
-      pending = 0;
+    // Epilogue of tile ci: affine, ReLU, one rounding, one 16-byte store
+    // per 8 channels (two for the f32 form).
+    const Tile u = tile(ci);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float4* s = sum + i * NT;
-        float4 v = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                               acc[4 * i + 3]);
-        if (it >= FLUSH / SUB) {
-          const float4 o = *s;
-          v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+    for (int p = 0; p < 2; ++p) {
+      const int n = u.nb * BN + 32 * p + 8 * t;
+      float sc[8], sh[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sc[j] = scale ? __ldg(scale + n + j) : 1.f;
+        sh[j] = shift ? __ldg(shift + n + j) : 0.f;
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int h = u.h0 + y0 + half, w = u.w0 + x0;
+        if (h >= H || w >= W) continue;
+        const int64_t o =
+            ((((int64_t)u.b * D + u.d) * H + h) * W + w) * cout + n;
+        float v[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 2 * q + e;
+            float y = fmaf(acc[4 * (4 * p + q) + 2 * half + e], sc[j], sh[j]);
+            v[j] = relu ? fmaxf(y, 0.f) : y;
+          }
+        if (F32OUT) {
+          float4* const dst =
+              reinterpret_cast<float4*>(static_cast<float*>(out) + o);
+          dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+          dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          *reinterpret_cast<uint4*>(static_cast<uint16_t*>(out) + o) =
+              make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                         bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
         }
-        if (!last) {
-          *s = v;
-          v = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-        acc[4 * i] = v.x;
-        acc[4 * i + 1] = v.y;
-        acc[4 * i + 2] = v.z;
-        acc[4 * i + 3] = v.w;
       }
     }
-  }
-
-  // Epilogue: affine, ReLU, one rounding, one 16-byte store per 8 channels
-  // (two for the f32 form).
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const int n = n0 + 32 * p + 8 * t;
-    float sc[8], sh[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sc[j] = scale ? __ldg(scale + n + j) : 1.f;
-      sh[j] = shift ? __ldg(shift + n + j) : 0.f;
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t m = m0 + warp * 16 + half * 8 + g;
-      if (m >= M) continue;
-      float v[8];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = 2 * q + e;
-          float y = fmaf(acc[4 * (4 * p + q) + 2 * half + e], sc[j], sh[j]);
-          v[j] = relu ? fmaxf(y, 0.f) : y;
-        }
-      if (F32OUT) {
-        float4* const dst =
-            reinterpret_cast<float4*>(static_cast<float*>(out) + m * cout + n);
-        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-      } else {
-        *reinterpret_cast<uint4*>(static_cast<uint16_t*>(out) + m * cout + n) =
-            make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
-                       bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
-      }
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    ci += gridDim.x;
+    if (ci < ntiles) {
+      const Tile next = tile(ci);
+      left = (kd_hi(next) - kd_lo(next)) * c32;
     }
   }
 }
 
 // One 16-byte row of the prepared weights per thread: row r of core matrix
-// (kc, ng) of k-step s of (unit, n-block), its 8 k values e, k slot
-// 8 kc + e = input channel 8 (e / 2) + 4s + 2kc + e % 2 of the unit, at
-// output channel 32 (ng / 4) + 8 (r / 2) + 2 (ng % 4) + r % 2 of the block.
+// (kc, ng) of k-step s of tap (kh, kw) of (stage (kd, c), n-block), its 8
+// k values e, k slot 8 kc + e = input channel 32c + 8 (e / 2) + 4s + 2kc +
+// e % 2, at output channel 32 (ng / 4) + 8 (r / 2) + 2 (ng % 4) + r % 2 of
+// the block.
 __global__ void prep_bf16_kernel(const uint16_t* __restrict__ k,
                                  uint4* __restrict__ wp, int cin, int cout,
                                  int total) {
@@ -287,10 +376,14 @@ __global__ void prep_bf16_kernel(const uint16_t* __restrict__ k,
   const int ng = (idx >> 3) & 7;
   const int kc = (idx >> 6) & 1;
   const int s = (idx >> 7) & 1;
-  const int nb = (idx >> 8) % (cout / BN);
-  const int u = (idx >> 8) / (cout / BN);
-  const int tap = u / (cin / BK);
-  const int ci0 = (u - tap * (cin / BK)) * BK + 4 * s + 2 * kc;
+  int rest = idx >> 8;
+  const int khw = rest % 9;
+  rest /= 9;
+  const int nb = rest % (cout / BN);
+  rest /= cout / BN;
+  const int c = rest % (cin / BK);
+  const int tap = (rest / (cin / BK)) * 9 + khw;
+  const int ci0 = c * BK + 4 * s + 2 * kc;
   const int co =
       nb * BN + 32 * (ng >> 2) + 8 * (r >> 1) + 2 * (ng & 3) + (r & 1);
   uint32_t v[4];
@@ -311,7 +404,7 @@ __global__ void prep_bf16_kernel(const uint16_t* __restrict__ k,
 }  // namespace
 
 // k (3, 3, 3, C_in, C_out) bf16 -> wp, the conv kernel's weight operand
-// (27 * cin / 32, cout / 64, 256) uint4, 16-byte aligned.
+// (3 kd, cin / 32, cout / 64, 9 taps, 256) uint4, 16-byte aligned.
 extern "C" int hp_conv3_mxu_bf16_prep(const void* k, void* wp, int cin,
                                       int cout, void* stream) {
   const int total = 27 * (cin / BK) * (cout / BN) * 256;
@@ -321,28 +414,75 @@ extern "C" int hp_conv3_mxu_bf16_prep(const void* k, void* wp, int cin,
   return (int)cudaGetLastError();
 }
 
-// x (B, D, H, W, C_in) bf16, wp from hp_conv3_mxu_bf16_prep, out (B, D, H,
-// W, C_out) bf16 (f32 with f32_out), all contiguous and 16-byte aligned;
-// C_in % 32 == 0, C_out % 64 == 0.  scale and shift (C_out,) f32 are both
-// null (no affine) or both set.
-extern "C" int hp_conv3_mxu_bf16_fwd(const void* x, const void* wp,
+// cuTensorMapEncodeTiled, through the runtime (no link to libcuda),
+// looked up once per library.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+namespace {
+EncodeTiled encode_tiled = nullptr;
+}
+
+// x (B, D, H, W, C_in) bf16; k (3, 3, 3, C_in, C_out) bf16, which the call
+// lays out into wp (as hp_conv3_mxu_bf16_prep) before the conv; out (B, D,
+// H, W, C_out) bf16 (f32 with f32_out); all contiguous and 16-byte
+// aligned; C_in % 32 == 0, C_out % 64 == 0.  scale and shift (C_out,) f32
+// are both null (no affine) or both set.  The integers come as one array,
+// p = {B, D, H, W, C_in, C_out, relu, f32_out, th, tw}: the tile th x tw
+// is 256 voxels, 8 x 32, 16 x 16 or 32 x 8 (ops/kernels/conv3mxu.py::
+// bf16_tile).
+extern "C" int hp_conv3_mxu_bf16_fwd(const void* x, const void* k, void* wp,
                                      const float* scale, const float* shift,
-                                     void* out, int B, int D, int H, int W,
-                                     int cin, int cout, int relu, int f32_out,
-                                     void* stream) {
-  const int64_t M = (int64_t)B * D * H * W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), cout / BN);
-  const bool two = cin % (2 * BK) == 0;
-  auto kernel = two ? (f32_out ? conv3_bf16_kernel<2, true>
-                               : conv3_bf16_kernel<2, false>)
-                    : (f32_out ? conv3_bf16_kernel<1, true>
-                               : conv3_bf16_kernel<1, false>);
-  const int smem = smem_bytes(two ? 2 : 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint4*>(wp), scale,
-      shift, out, B, D, H, W, cin, cout, relu);
+                                     void* out, const int* p, void* stream) {
+  const int B = p[0], D = p[1], H = p[2], W = p[3], cin = p[4], cout = p[5];
+  const int relu = p[6], f32_out = p[7], th = p[8], tw = p[9];
+  if (th * tw != BM || (th + 2) * (tw + 2) > HALO_MAX || tw % 8 != 0 ||
+      th % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  int err = hp_conv3_mxu_bf16_prep(k, wp, cin, cout, stream);
+  if (err) return err;
+  if (encode_tiled == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    if ((err = (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found)))
+      return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
+  }
+  // x as (C_in, W, H, B D): a box of 32 channels x (tw + 2) x (th + 2) x 1
+  // plane lands in shared memory as the halo [hy][wx][32] of one stage
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B * D};
+  const cuuint64_t strides[3] = {(cuuint64_t)cin * 2, (cuuint64_t)W * cin * 2,
+                                 (cuuint64_t)H * W * cin * 2};
+  const cuuint32_t box[4] = {BK, (cuuint32_t)tw + 2, (cuuint32_t)th + 2, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode_tiled(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(x), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         dev)))
+    return err;
+  const int64_t tiles = (int64_t)B * D * ((H + th - 1) / th) *
+                        ((W + tw - 1) / tw) * (cout / BN);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  auto kernel = f32_out ? conv3_bf16_kernel<true> : conv3_bf16_kernel<false>;
+  if ((err = (int)cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM)))
+    return err;
+  kernel<<<grid, NT, SMEM, (cudaStream_t)stream>>>(
+      map, static_cast<const uint4*>(wp), scale, shift, out, B, D, H, W, cin,
+      cout, relu, th, tw);
   return (int)cudaGetLastError();
 }

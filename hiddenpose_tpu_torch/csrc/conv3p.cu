@@ -17,7 +17,9 @@
 // On bf16 volumes (the bfloat16 model's FeatureExtraction and UNet) the
 // source, the residual and the output are bf16 and everything else f32:
 // the JAX kernel's contract for a bf16 x (f32 weights and sums, the result
-// in x's type).
+// in x's type).  Those calls run instances of their own, which stage the
+// raw bf16 planes by cp.async and widen them where a thread reads them
+// (BF16 ROWS in conv3p_tile.cuh).
 // Design: the tile walk of conv3p_tile.cuh (each input plane staged once
 // by asynchronous copies, a register tile of R rows x CB output channels x
 // three planes in flight, channel blocks of 1, 4 or 8 that fit C_out, the

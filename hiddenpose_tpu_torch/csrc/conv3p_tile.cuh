@@ -98,9 +98,9 @@ struct Args {
   int vect;        // 16-byte loads of the taps along the source channels
   // K1 on bf16 volumes: the source, residual and output as bf16 in place
   // of src, residual and out (the taps, bias and sums stay f32).  A plane
-  // is widened to f32 on its way into shared memory, by plain loads (a
-  // cp.async copies bytes and cannot convert), so the tile walk itself is
-  // the f32 one; vec8: 16-byte loads of 8 values along a row.
+  // is staged as raw bf16 by cp.async, like the f32 planes (16-byte copies
+  // of 8 values where vec8: W % 8 == 0), and widened to f32 where the walk
+  // reads it into its registers (see BF16 ROWS below).
   const uint16_t* src16 = nullptr;
   const uint16_t* res16 = nullptr;
   uint16_t* out16 = nullptr;
@@ -115,6 +115,21 @@ __host__ __device__ constexpr int row_pitch(int tw, int r) {
   return tw == 32 ? 40 : (r == 4 ? 28 : 24);
 }
 
+// BF16 ROWS.  A staged bf16 row: column w0 - 1 + xx at index xx + 7, so
+// the tile's own columns start at index 8 (16-byte aligned, one cp.async
+// of 8 values each), the left halo column is the high half of the 4-byte
+// pair (w0 - 2, w0 - 1) copied to index 6 and the right one the low half
+// of (w0 + TW, w0 + TW + 1) at TW + 8.  The pitch (bf16 values, a multiple
+// of 8) puts the two thread rows of a warp of a 16-wide tile (R rows
+// apart) into distinct banks.  Under edge padding a column past a face is
+// not staged: a thread reads the clamped column in its place, from the
+// tile's own columns or halo.  The pre-affine is applied where a value is
+// widened, and a padded position of a zero-padded volume is masked to 0
+// after it (the affine precedes the padding).
+__host__ __device__ constexpr int row_pitch16(int tw, int r) {
+  return tw == 32 ? 48 : (r == 4 ? 40 : 48);
+}
+
 // Which faces of the (H, W) plane a thread's outputs lie on: bit rr of lo_h
 // / hi_h for its row rr at index 0 / H - 1, lo_w / hi_w for its column.
 struct Faces {
@@ -125,6 +140,7 @@ struct Faces {
 // What is uniform over a block, and a thread's place in it.
 struct Ctx {
   float* smem;   // NSLOT units: cg planes, then the unit's taps unless resident
+  int planes_floats;  // the cg planes of a slot (f32, or bf16 in pairs)
   float* wres;   // the resident taps of all source channels
   float* red;    // the splits' partial sums
   int tid, nthreads, lane_w, ty, split, npos;
@@ -138,7 +154,7 @@ struct Ctx {
 
 // Start the copies of unit `u` = (plane pa + u / G, channel group u % G)
 // into slot u % NSLOT (no wait).
-template <int CB, int TW, int XW>
+template <int CB, int TW, int XW, int XW16, bool BF16>
 __device__ __forceinline__ void stage(const Args& a, const Ctx& c, int u) {
   const int D = a.D, H = a.H, W = a.W;
   const int tid = c.tid, nthreads = c.nthreads, XH = c.XH;
@@ -148,7 +164,7 @@ __device__ __forceinline__ void stage(const Args& a, const Ctx& c, int u) {
   const int c0 = (u % c.G) * a.cg;
   const int nc = min(a.cg, a.cs - c0);
   const int64_t sp_off = (((int64_t)c.b * a.cs + c0) * D + gp) * c.plane;
-  const float* sp = a.src16 ? nullptr : a.src + sp_off;
+  const float* sp = BF16 ? nullptr : a.src + sp_off;
   const int64_t cstride = (int64_t)D * c.plane;
   // Staged row `row` = (channel, yy): its source row (h clamped under edge
   // padding) or null where it is zero.
@@ -161,9 +177,9 @@ __device__ __forceinline__ void stage(const Args& a, const Ctx& c, int u) {
     }
     return sp + (row / XH) * cstride + (int64_t)gh * W;
   };
-  if (a.src16) {
-    // bf16: widened on the way in, by plain loads; padding is zero (or the
-    // clamped neighbour), with the pre-affine applied to real values only
+  if constexpr (BF16) {
+    // bf16: raw values, widened where the walk reads them (BF16 ROWS)
+    uint16_t* const xs16 = reinterpret_cast<uint16_t*>(xs);
     const uint16_t* sp16 = a.src16 + sp_off;
     auto row16 = [&](int row) -> const uint16_t* {
       int gh = h0 - 1 + row % XH;
@@ -174,56 +190,38 @@ __device__ __forceinline__ void stage(const Args& a, const Ctx& c, int u) {
       }
       return sp16 + (row / XH) * cstride + (int64_t)gh * W;
     };
-    auto pre = [&](float v, int row) {
-      if (a.pre_mode) {
-        const int ch = c0 + row / XH;
-        v = fmaf(v, a.pre_scale[ch], a.pre_shift[ch]);
-        if (a.pre_mode == 2) v = fmaxf(v, 0.f);
-      }
-      return v;
-    };
-    auto one = [&](const uint16_t* src, int row, int gw) {
-      if (a.clamp) gw = min(max(gw, 0), W - 1);
-      return src != nullptr && gw >= 0 && gw < W
-                 ? pre(bf16_widen(__ldg(src + gw)), row)
-                 : 0.f;
-    };
     if (a.vec8) {
       // the tile's own columns, eight at a time: W % 8 == 0, so the eight
       // lie inside the volume together or not at all
       constexpr int QW = TW / 8;
       for (int it = tid; it < nc * XH * QW; it += nthreads) {
         const int row = it / QW, gw = w0 + 8 * (it % QW);
-        float* dst = xs + row * XW + 4 + 8 * (it % QW);
         const uint16_t* src = row16(row);
-        float v[8];
-        if (src != nullptr && gw < W) {
-          const uint4 u = __ldg(reinterpret_cast<const uint4*>(src + gw));
-          const uint32_t q[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            v[2 * j] = pre(bf16_widen(q[j] & 0xffffu), row);
-            v[2 * j + 1] = pre(bf16_widen(q[j] >> 16), row);
-          }
-        } else {
-          // past a ragged tile's last column: the right neighbour of column
-          // W - 1 under edge padding, else zeros
-          const float e = one(src, row, W);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = e;
-        }
-        reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-        reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+        const bool in = src != nullptr && gw < W;
+        cp_async16((uint32_t)__cvta_generic_to_shared(xs16 + row * XW16 + 8 +
+                                                      8 * (it % QW)),
+                   in ? src + gw : a.src16, in);
       }
-      for (int it = tid; it < nc * XH * 2; it += nthreads) {
+      // the halo columns in their 4-byte pairs (W even: a pair lies inside
+      // the volume together or not at all), unless zeroed once for all
+      for (int it = tid; it < (c.halo_zeroed ? 0 : nc * XH * 2);
+           it += nthreads) {
         const int row = it >> 1;
-        xs[row * XW + ((it & 1) ? TW + 4 : 3)] =
-            one(row16(row), row, (it & 1) ? w0 + TW : w0 - 1);
+        const uint16_t* src = row16(row);
+        const int gw = (it & 1) ? w0 + TW : w0 - 2;
+        const bool in = src != nullptr && gw >= 0 && gw < W;
+        cp_async4((uint32_t)__cvta_generic_to_shared(
+                      xs16 + row * XW16 + ((it & 1) ? TW + 8 : 6)),
+                  in ? src + gw : a.src16, in);
       }
     } else {
+      // rows of any width: plain loads of the raw values, zero outside
       for (int it = tid; it < nc * XH * (TW + 2); it += nthreads) {
         const int row = it / (TW + 2), xx = it % (TW + 2);
-        xs[row * XW + xx + 3] = one(row16(row), row, w0 - 1 + xx);
+        const uint16_t* src = row16(row);
+        const int gw = w0 - 1 + xx;
+        xs16[row * XW16 + xx + 7] =
+            src != nullptr && gw >= 0 && gw < W ? __ldg(src + gw) : 0;
       }
     }
   } else if (a.pre_mode) {
@@ -284,7 +282,7 @@ __device__ __forceinline__ void stage(const Args& a, const Ctx& c, int u) {
   // (of this unit's channels; where the taps stay resident, only while the
   // first plane's units are staged)
   if (!c.w_resident || u < c.G) {
-    float* ws = c.w_resident ? c.wres + c0 * 27 * CB : xs + a.cg * c.XPLANE;
+    float* ws = c.w_resident ? c.wres + c0 * 27 * CB : xs + c.planes_floats;
     const int wc0 = c0, wn = nc;
     const int64_t tap_stride = (int64_t)a.cs * a.cd;
     if (a.vecw) {
@@ -396,7 +394,7 @@ __device__ __forceinline__ void taps(float (&acc)[3][R][CB],
 // then bias, residual, activation, store.  With splits every thread group
 // leaves its R x CB sums in shared memory and then finishes every
 // `splits`-th of them.
-template <int SLOT, int CB, int TW, int R>
+template <int SLOT, int CB, int TW, int R, bool BF16>
 __device__ __forceinline__ void emit(float (&acc)[3][R][CB], const Args& a,
                                      const Ctx& c, const float (&bias)[CB],
                                      int t) {
@@ -409,8 +407,8 @@ __device__ __forceinline__ void emit(float (&acc)[3][R][CB], const Args& a,
     if (w < a.W && h + rr < a.H && c.dst0 + j < a.cd) {
       const int64_t o = o0 + (int64_t)j * a.D * c.plane + rr * a.W;
       v += bj;
-      if (a.res16) {
-        v += bf16_widen(a.res16[o]);
+      if constexpr (BF16) {
+        if (a.res16) v += bf16_widen(a.res16[o]);
       } else if (a.residual) {
         v += a.residual[o];
       }
@@ -419,7 +417,7 @@ __device__ __forceinline__ void emit(float (&acc)[3][R][CB], const Args& a,
       } else if (a.act == 2) {
         v = v >= 0.f ? v : 0.2f * v;
       }
-      if (a.out16) {
+      if constexpr (BF16) {
         a.out16[o] = (uint16_t)bf16_bits(v);
       } else {
         a.out[o] = v;
@@ -449,10 +447,11 @@ __device__ __forceinline__ void emit(float (&acc)[3][R][CB], const Args& a,
   __syncthreads();
 }
 
-template <int CB, int R, int TW, bool FOLD>
+template <int CB, int R, int TW, bool FOLD, bool BF16>
 __global__ void __launch_bounds__(MAX_THREADS)
 conv3p_tile_kernel(const Args a) {
   constexpr int XW = row_pitch(TW, R);
+  constexpr int XW16 = row_pitch16(TW, R);
   // the sums' slots: output planes p - 1, p, p + 1 of source plane p
   constexpr int PREV = 0, SAME = 1, NEXT = 2;
   extern __shared__ __align__(16) float smem[];
@@ -467,6 +466,7 @@ conv3p_tile_kernel(const Args a) {
   c.TH = a.thr * R;
   c.XH = c.TH + 2;
   c.XPLANE = c.XH * XW;
+  c.planes_floats = a.cg * (BF16 ? c.XH * XW16 / 2 : c.XPLANE);
   const int tiles_w = (a.W + TW - 1) / TW;
   const int groups = (a.cd + CB - 1) / CB;
   c.w0 = (blockIdx.x % tiles_w) * TW;
@@ -481,7 +481,7 @@ conv3p_tile_kernel(const Args a) {
   // shared memory: NSLOT units (cg planes, then cg x 27 x CB taps unless
   // they are resident), the resident taps, the splits' partial sums
   const int wfloats = ((a.wres ? a.cs : a.cg) * 27 * CB + 3) & ~3;
-  c.slot_floats = a.cg * c.XPLANE + (c.w_resident ? 0 : wfloats);
+  c.slot_floats = c.planes_floats + (c.w_resident ? 0 : wfloats);
   c.smem = smem;
   c.wres = smem + NSLOT * c.slot_floats;
   c.red = c.wres + (c.w_resident ? wfloats : 0);
@@ -496,13 +496,21 @@ conv3p_tile_kernel(const Args a) {
   c.nunits = (c.pb - c.pa + 1) * c.G;
   // A tile that spans the rows of a zero-padded volume never reads a halo
   // column from memory: zero both columns of every slot once.
-  c.halo_zeroed = !a.clamp && !a.pre_mode && a.vec && a.W <= TW;
+  c.halo_zeroed = !a.clamp && a.W <= TW &&
+                  (BF16 ? a.vec8 : !a.pre_mode && a.vec);
   if (c.halo_zeroed) {
     for (int it = c.tid; it < NSLOT * a.cg * c.XH; it += c.nthreads) {
-      float* row = smem + (it / (a.cg * c.XH)) * c.slot_floats +
-                   (it % (a.cg * c.XH)) * XW;
-      row[3] = 0.f;
-      row[TW + 4] = 0.f;
+      float* slot = smem + (it / (a.cg * c.XH)) * c.slot_floats;
+      if constexpr (BF16) {  // the two 4-byte pairs of BF16 ROWS
+        uint32_t* row = reinterpret_cast<uint32_t*>(slot) +
+                        (it % (a.cg * c.XH)) * (XW16 / 2);
+        row[3] = 0u;
+        row[TW / 2 + 4] = 0u;
+      } else {
+        float* row = slot + (it % (a.cg * c.XH)) * XW;
+        row[3] = 0.f;
+        row[TW + 4] = 0.f;
+      }
     }
   }
   // K5 under edge padding, a tile on a face of the volume: which of the
@@ -519,6 +527,24 @@ conv3p_tile_kernel(const Args a) {
   }
   f.lo_w = c.w0 + c.lane_w == 0;
   f.hi_w = c.w0 + c.lane_w == a.W - 1;
+  // BF16 ROWS: the index of the thread's three columns in a staged row
+  // (under edge padding the clamped column's), and which of its values lie
+  // inside a zero-padded volume: bit yy of row_in, bit kw of col_in
+  int col16[3] = {0, 0, 0};
+  unsigned row_in = 0, col_in = 0;
+  if constexpr (BF16) {
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      const int gw = c.w0 + c.lane_w - 1 + kw;
+      col16[kw] = (a.clamp ? min(max(gw, 0), a.W - 1) : gw) - c.w0 + 8;
+      col_in |= (unsigned)(a.clamp || (gw >= 0 && gw < a.W)) << kw;
+    }
+#pragma unroll
+    for (int yy = 0; yy < R + 2; ++yy) {
+      const int gh = c.h0 + c.ty * R - 1 + yy;
+      row_in |= (unsigned)(a.clamp || (gh >= 0 && gh < a.H)) << yy;
+    }
+  }
 
   float bias[CB];
 #pragma unroll
@@ -542,7 +568,8 @@ conv3p_tile_kernel(const Args a) {
       __syncthreads();
     }
     // slot (u - 1) % NSLOT was last read for unit u - 1, before the barrier
-    if (u + NSLOT - 1 < c.nunits) stage<CB, TW, XW>(a, c, u + NSLOT - 1);
+    if (u + NSLOT - 1 < c.nunits)
+      stage<CB, TW, XW, XW16, BF16>(a, c, u + NSLOT - 1);
     cp_async_commit();
     if (u < 0) continue;
     // where tap plane kd of source plane p lands: 0 nowhere in this
@@ -558,16 +585,40 @@ conv3p_tile_kernel(const Args a) {
     if (real) {
       const float* xs = c.smem + (u % NSLOT) * c.slot_floats;
       const float* ws = c.w_resident ? c.wres + g * a.cg * 27 * CB
-                                     : xs + a.cg * c.XPLANE;
+                                     : xs + c.planes_floats;
       const int nc = min(a.cg, a.cs - g * a.cg);
       for (int ch = c.split; ch < nc; ch += a.splits) {
-        const float* xb = xs + ch * c.XPLANE + c.ty * R * XW + c.lane_w + 3;
         const float* wc = ws + ch * 27 * CB;
         float v[R + 2][3];
+        if constexpr (BF16) {
+          // BF16 ROWS: widen; the pre-affine on values inside the volume
+          const uint16_t* xb = reinterpret_cast<const uint16_t*>(xs) +
+                               (ch * c.XH + c.ty * R) * XW16;
 #pragma unroll
-        for (int yy = 0; yy < R + 2; ++yy)
+          for (int yy = 0; yy < R + 2; ++yy)
 #pragma unroll
-          for (int kw = 0; kw < 3; ++kw) v[yy][kw] = xb[yy * XW + kw];
+            for (int kw = 0; kw < 3; ++kw)
+              v[yy][kw] = bf16_widen(xb[yy * XW16 + col16[kw]]);
+          if (a.pre_mode) {
+            const float ps = a.pre_scale[g * a.cg + ch];
+            const float pt = a.pre_shift[g * a.cg + ch];
+#pragma unroll
+            for (int yy = 0; yy < R + 2; ++yy)
+#pragma unroll
+              for (int kw = 0; kw < 3; ++kw) {
+                float x = fmaf(v[yy][kw], ps, pt);
+                if (a.pre_mode == 2) x = fmaxf(x, 0.f);
+                v[yy][kw] = (row_in >> yy) & (col_in >> kw) & 1u ? x : 0.f;
+              }
+          }
+        } else {
+          const float* xb =
+              xs + ch * c.XPLANE + c.ty * R * XW + c.lane_w + 3;
+#pragma unroll
+          for (int yy = 0; yy < R + 2; ++yy)
+#pragma unroll
+            for (int kw = 0; kw < 3; ++kw) v[yy][kw] = xb[yy * XW + kw];
+        }
         if (m0 == 1) taps<NEXT, CB, R>(acc, v, wc, c.face, f);
         if (FOLD && m0 == 2) taps<SAME, CB, R>(acc, v, wc, c.face, f);
         if (own) taps<SAME, CB, R>(acc, v, wc + 9 * CB, c.face, f);
@@ -579,7 +630,7 @@ conv3p_tile_kernel(const Args a) {
     }
     // source plane p is done: output plane p - 1 is complete; the sums
     // move one slot down for source plane p + 1
-    if (m2 == 1) emit<PREV, CB, TW, R>(acc, a, c, bias, p - 1);
+    if (m2 == 1) emit<PREV, CB, TW, R, BF16>(acc, a, c, bias, p - 1);
 #pragma unroll
     for (int rr = 0; rr < R; ++rr)
 #pragma unroll
@@ -598,13 +649,15 @@ conv3p_tile_kernel(const Args a) {
 // every library a process loads, and a rebuilt library's kernels would
 // stay at the 48 KB default.
 namespace {
-bool sized_flags[12];
+bool sized_flags[24];
 }
 
 // Shared memory of one block, bytes.
 template <int CB, int R, int TW>
 size_t smem_bytes(const Args& a) {
-  const int xplane = (a.thr * R + 2) * row_pitch(TW, R);
+  // a plane of XH rows, in floats (bf16 values in pairs)
+  const int xplane = (a.thr * R + 2) * (a.src16 ? row_pitch16(TW, R) / 2
+                                                 : row_pitch(TW, R));
   const bool resident = a.wres;
   const int wfloats = ((resident ? a.cs : a.cg) * 27 * CB + 3) & ~3;
   const size_t slot = (size_t)a.cg * xplane + (resident ? 0 : wfloats);
@@ -613,7 +666,7 @@ size_t smem_bytes(const Args& a) {
   return (NSLOT * slot + (resident ? wfloats : 0) + red) * sizeof(float);
 }
 
-template <int CB, int R, int TW, bool FOLD>
+template <int CB, int R, int TW, bool FOLD, bool BF16>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   const int threads = TW * a.thr * a.splits;
   const size_t bytes = smem_bytes<CB, R, TW>(a);
@@ -623,11 +676,11 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
       bytes > MAX_SMEM)
     return cudaErrorInvalidValue;
   // once per instance and library
-  bool& sized = sized_flags[((CB == 1 ? 0 : CB == 4 ? 1 : 2) * 2 +
-                             (TW == 32)) * 2 + FOLD];
+  bool& sized = sized_flags[(((CB == 1 ? 0 : CB == 4 ? 1 : 2) * 2 +
+                              (TW == 32)) * 2 + FOLD) * 2 + BF16];
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv3p_tile_kernel<CB, R, TW, FOLD>,
+        conv3p_tile_kernel<CB, R, TW, FOLD, BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return err;
     sized = true;
@@ -636,21 +689,32 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
                                               (a.thr * R));
   dim3 grid(tiles, (a.D + a.chunk - 1) / a.chunk,
             a.B * ((a.cd + CB - 1) / CB));
-  conv3p_tile_kernel<CB, R, TW, FOLD><<<grid, threads, bytes, s>>>(a);
+  conv3p_tile_kernel<CB, R, TW, FOLD, BF16><<<grid, threads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
 // The instance for a plan's (cb, r, tw): cb channels by r rows a thread
-// (27 x r x cb sums in three slots stay in registers), tw 16 or 32.
-template <bool FOLD>
-cudaError_t dispatch(int cb, int r, int tw, const Args& a, cudaStream_t s) {
+// (27 x r x cb sums in three slots stay in registers), tw 16 or 32; K1 on
+// bf16 volumes has instances of its own (a runtime branch on the planes'
+// type made the f32 walk slower).
+template <bool FOLD, bool BF16>
+cudaError_t dispatch_as(int cb, int r, int tw, const Args& a,
+                        cudaStream_t s) {
 #define HP_TILE(CB, R, TW) \
-  if (cb == CB && r == R && tw == TW) return launch<CB, R, TW, FOLD>(a, s)
+  if (cb == CB && r == R && tw == TW) return launch<CB, R, TW, FOLD, BF16>(a, s)
   HP_TILE(1, 4, 16); HP_TILE(1, 4, 32);
   HP_TILE(4, 4, 16); HP_TILE(4, 4, 32);
   HP_TILE(8, 2, 16); HP_TILE(8, 2, 32);
 #undef HP_TILE
   return cudaErrorInvalidValue;
+}
+
+template <bool FOLD>
+cudaError_t dispatch(int cb, int r, int tw, const Args& a, cudaStream_t s) {
+  if constexpr (!FOLD) {
+    if (a.src16) return dispatch_as<false, true>(cb, r, tw, a, s);
+  }
+  return dispatch_as<FOLD, false>(cb, r, tw, a, s);
 }
 
 }  // namespace conv3p_tile

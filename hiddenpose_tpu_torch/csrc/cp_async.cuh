@@ -1,6 +1,6 @@
 // Asynchronous copies from global to shared memory (cp.async), shared by
-// the stencil kernels (conv3p_tile.cuh: K1 and K5; conv3p_wgrad.cu: K6)
-// and the bf16 tensor-core kernels (conv3mxu_bf16.cu, stem_conv_bf16.cu).
+// the stencil kernels (conv3p_tile.cuh: K1, K1-bf16 and K5;
+// conv3p_wgrad.cu: K6) and the bf16 stem (stem_conv_bf16.cu).
 // A copy with `copy` false writes zeros and reads nothing, but `src` must
 // still be an address inside the tensor.
 
@@ -28,6 +28,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 }
 
 // The same, to a shared-memory address as `__cvta_generic_to_shared` gives.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool copy) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(copy ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool copy) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),

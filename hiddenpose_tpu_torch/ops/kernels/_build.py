@@ -55,7 +55,7 @@ SIGNATURES = {
     "hp_conv3_mxu_prep": [_P] * 2 + [_I] * 3 + [_P],
     "hp_conv3_mxu_fwd": [_P] * 5 + [_I] * 7 + [_P],
     "hp_conv3_mxu_bf16_prep": [_P] * 2 + [_I] * 2 + [_P],
-    "hp_conv3_mxu_bf16_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    "hp_conv3_mxu_bf16_fwd": [_P] * 7 + [_P],
     "hp_stem_conv_bf16_prep": [_P] * 2 + [_P],
     "hp_stem_conv_bf16_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "hp_conv3p_adjoint": [_P] * 4 + [_P],

@@ -268,28 +268,56 @@ def conv3_mxu_diff(x, k):
 
 # ------------------------------------------------------------------- bf16
 # The bf16 kernel (csrc/conv3mxu_bf16.cu) multiplies in one bf16 pass,
-# wgmma m64n64k16.  Its unit is 32 input channels of one tap, two k-steps s
-# of 16.  Neither k nor n of an MMA has to follow memory order: k slot k of
+# wgmma m64n64k16.  A tile is 256 output voxels of one output plane
+# (:func:`bf16_tile`) by 64 output channels; its work comes in
+# stages of one input plane kd and 32 input channels: the stage's halo of
+# that plane, (TH + 2) x (TW + 2) voxels of 32 channels, is staged once,
+# and its nine (kh, kw) taps read their A rows from it, two k-steps s of 16
+# each.  Neither k nor n of an MMA has to follow memory order: k slot k of
 # k-step s is input channel 8 ((k % 8) / 2) + 4s + 2 (k / 8) + k % 2 of the
-# unit, so that a lane's A of both k-steps is one 16-byte read of 8
+# stage's 32, so that a lane's A of both k-steps is one 16-byte read of 8
 # consecutive channels per row, and column r of n-tile ng = 4p + q is
 # output channel 32p + 8(r / 2) + 2q + r % 2, so that its accumulators of
 # four n-tiles are 8 consecutive channels (one 16-byte store of bf16).  B
 # (16 k x 64 n, K-major) is 2 x 8 core matrices of 8 n x 8 k, 128 bytes
 # each: element (k, n) at byte 2 (k % 8) + 16 (n % 8) + 1024 (k / 8) +
-# 128 (n / 8); a unit's two k-steps are one contiguous 4 KB run.
+# 128 (n / 8); a tap's two k-steps are 4 KB, a stage's nine taps one
+# contiguous 36 KB run of the prepared weights.
 BF16_UNIT = 32
+BF16_TILE_VOXELS = 256
 
 
 def conv3mxu_bf16_supported(cin: int, cout: int) -> bool:
-    """Channel counts the bf16 kernel takes (a unit of 32 input channels
+    """Channel counts the bf16 kernel takes (a stage of 32 input channels
     lies inside one tap; 64-wide output tiles never straddle C_out)."""
     return cin % BF16_UNIT == 0 and cout % 64 == 0 and cin > 0 and cout > 0
 
 
+def bf16_tile(h: int, w: int):
+    """(TH, TW): the bf16 kernel's output tile of 256 voxels of a plane,
+    four 8 x 8 patches, TW the narrowest of 8, 16 and 32 that covers W (32
+    for wider volumes).  The path's c64 @64^3, c128 @32^3 and c256 @16^3
+    take 8 x 32, 8 x 32 and 16 x 16: 2048, 512 and 128 tiles of 64 output
+    channels, which one persistent block a multiprocessor walks through."""
+    tw = 32 if w > 16 else 16 if w > 8 else 8
+    return BF16_TILE_VOXELS // tw, tw
+
+
+def bf16_row_voxels(tile):
+    """(y, x), each (256,): the tile voxel of each row m of the block's
+    MMAs.  Warpgroup m / 64 owns 8 x 8 patch m / 64 of the tile (patches
+    TW / 8 a row), warp (m % 64) / 16 its rows 2w and 2w + 1: row g and
+    row g + 8 of a warp are one column, H rows y and y + 1, so that a
+    lane's tap (kh, kw) of row g + 8 is its tap (kh + 1, kw) of row g."""
+    th, tw = tile
+    m = torch.arange(BF16_TILE_VOXELS)
+    q, w, half, g = m // 64, (m % 64) // 16, (m % 16) // 8, m % 8
+    return (q // (tw // 8)) * 8 + 2 * w + half, (q % (tw // 8)) * 8 + g
+
+
 def unit_channels_bf16():
-    """(2 k-steps, 16 k slots): the input channel of the unit each slot
-    holds."""
+    """(2 k-steps, 16 k slots): the input channel of the stage's 32 each
+    slot holds."""
     s = torch.arange(2)[:, None]
     k = torch.arange(16)[None, :]
     return 8 * ((k % 8) // 2) + 4 * s + 2 * (k // 8) + k % 2
@@ -314,17 +342,18 @@ def b_offsets_bf16():
 
 def prepare_weights_bf16_ref(k):
     """Plain version of :func:`prepare_weights_bf16`: ``k`` (3, 3, 3, C_in,
-    C_out) DHWIO bf16 laid out as (27 * C_in / 32 units, C_out / 64, 2
-    k-steps, 2 core matrices along k, 8 along n, 8 rows, 8) bf16."""
+    C_out) DHWIO bf16 laid out as (3 kd, C_in / 32, C_out / 64, 9 taps
+    (kh, kw), 2 k-steps, 2 core matrices along k, 8 along n, 8 rows, 8)
+    bf16: a stage's (kd, 32-channel block, n-block) B is one run."""
     cin, cout = k.shape[3], k.shape[4]
-    w = k.reshape(27, cin // BF16_UNIT, BF16_UNIT, cout // 64, 64)
-    w = w[:, :, unit_channels_bf16()]          # (tap, cb, s, k, nb, 64)
+    c32, nb = cin // BF16_UNIT, cout // 64
+    w = k.reshape(3, 9, c32, BF16_UNIT, nb, 64)
+    w = w[:, :, :, unit_channels_bf16()]       # (kd, khw, c, s, k, nb, 64)
     w = w[..., column_channels_bf16()]         # columns in MMA order
-    # (tap, cb, s, kc, e, nb, ng, r) -> (tap, cb, nb, s, kc, ng, r, e)
-    w = w.reshape(27, cin // BF16_UNIT, 2, 2, 8, cout // 64, 8, 8)
-    w = w.permute(0, 1, 5, 2, 3, 6, 7, 4)
-    return w.reshape(27 * cin // BF16_UNIT, cout // 64, 2, 2, 8, 8,
-                     8).contiguous()
+    # (kd, khw, c, s, kc, e, nb, ng, r) -> (kd, c, nb, khw, s, kc, ng, r, e)
+    w = w.reshape(3, 9, c32, 2, 2, 8, nb, 8, 8)
+    w = w.permute(0, 2, 6, 1, 3, 4, 7, 8, 5)
+    return w.contiguous()
 
 
 def prepare_weights_bf16(k):
@@ -337,39 +366,78 @@ def prepare_weights_bf16(k):
         raise ValueError(f"prepare_weights_bf16: unsupported device "
                          f"{k.device}")
     cin, cout = k.shape[3], k.shape[4]
-    wp = torch.empty((27 * cin // BF16_UNIT, cout // 64, 2, 2, 8, 8, 8),
+    wp = torch.empty((3, cin // BF16_UNIT, cout // 64, 9, 2, 2, 8, 8, 8),
                      device=k.device, dtype=torch.bfloat16)
     _build.launch("hp_conv3_mxu_bf16_prep", k.data_ptr(), wp.data_ptr(), cin,
                   cout, device=k.device)
     return wp
 
 
+def bf16_halos(x, tile):
+    """Each block's halo planes as the kernel stages them: x (B, D, H, W,
+    C) -> (B, D + 2, tiles, (TH + 2) (TW + 2), C), input plane p at index
+    p + 1, tile (i, j) at index i * tiles_w + j, halo voxel (hy, wx) at
+    hy (TW + 2) + wx = input voxel (i TH - 1 + hy, j TW - 1 + wx), zero
+    outside the volume."""
+    b, d, h, w, c = x.shape
+    th, tw = tile
+    nth, ntw = -(-h // th), -(-w // tw)
+    xp = F.pad(x, (0, 0, 1, 1 + ntw * tw - w, 1, 1 + nth * th - h, 1, 1))
+    halos = xp.unfold(2, th + 2, th).unfold(3, tw + 2, tw)
+    # (b, D + 2, nth, ntw, c, th + 2, tw + 2) -> voxels then channels
+    halos = halos.permute(0, 1, 2, 3, 5, 6, 4)
+    return halos.reshape(b, d + 2, nth * ntw, (th + 2) * (tw + 2), c)
+
+
+def bf16_tap_rows(tile, kh, kw):
+    """(256,): the halo voxel that each row m of the block's MMAs (tile
+    voxel :func:`bf16_row_voxels`) reads for tap (kh, kw)."""
+    y, x = bf16_row_voxels(tile)
+    return (y + kh) * (tile[1] + 2) + x + kw
+
+
 def conv3_mxu_bf16_tiled_ref(x, k, scale=None, shift=None, relu=False,
-                             out_dtype=torch.bfloat16):
-    """The bf16 kernel's bookkeeping in plain PyTorch: the implicit im2col
-    rows, each unit's two k-steps with their A slots in the kernel's
+                             out_dtype=torch.bfloat16, tile=None):
+    """The bf16 kernel's bookkeeping in plain PyTorch: every block's halo
+    of each stage (:func:`bf16_halos`), the A rows of each tap gathered
+    from it (:func:`bf16_tap_rows`) with their slots in the kernel's
     channel order, the B operands of :func:`prepare_weights_bf16_ref` read
-    back through the descriptor, one partial a unit (f32 products of bf16
-    values) added in order, the columns put back in channel order, the
-    affine and ReLU in f32, one rounding to ``out_dtype``."""
+    back through the descriptor, one f32 partial a stage (9 taps x 2
+    k-steps of exact products of bf16 values, kw by kw) added in stage
+    order, the rows put back into the tiles (:func:`bf16_row_voxels`) and
+    the columns in channel order, the tiles into the volume, the affine
+    and ReLU in f32, one rounding to ``out_dtype``.  ``tile``: a (TH, TW)
+    of the kernel's, by default :func:`bf16_tile`'s."""
     b, d, h, w, cin = x.shape
     cout = k.shape[4]
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
-    taps = torch.stack([xp[:, i:i + d, j:j + h, l:l + w]
-                        for i in range(3) for j in range(3)
-                        for l in range(3)], -2)  # (b, d, h, w, 27, cin)
-    a = taps.reshape(-1, 27, cin // BF16_UNIT, BF16_UNIT)
-    a = a[..., unit_channels_bf16()]             # (M, tap, cb, s, 16)
-    a = a.reshape(a.shape[0], -1, 2, 16)         # (M, unit, s, 16)
-    bm = prepare_weights_bf16_ref(k).reshape(
-        a.shape[1], cout // 64, 2, 1024)[..., b_offsets_bf16()].float()
+    th, tw = tile or bf16_tile(h, w)
+    nth, ntw = -(-h // th), -(-w // tw)
+    c32, nb = cin // BF16_UNIT, cout // 64
+    halos = bf16_halos(x.float(), (th, tw))
+    bm = prepare_weights_bf16_ref(k).reshape(3, c32, nb, 9, 2, 1024)
+    bm = bm[..., b_offsets_bf16()].float()      # (kd, c, nb, tap, s, 16, 64)
     acc = 0.0
-    for u in range(a.shape[1]):
-        part = (a[:, u, 0] @ bm[u, :, 0]) + (a[:, u, 1] @ bm[u, :, 1])
-        acc = acc + part                         # (nb, M, 64)
+    for kd in range(3):
+        # output plane o reads input plane o + kd - 1: halo index o + kd
+        hal = halos[:, kd:kd + d].reshape(-1, *halos.shape[3:])
+        for c in range(c32):
+            chans = c * BF16_UNIT + unit_channels_bf16()
+            part = 0.0
+            for kw in range(3):
+                for kh in range(3):
+                    a = hal[:, bf16_tap_rows((th, tw), kh, kw)][..., chans]
+                    for s in range(2):  # (blocks, 256, 16) @ (nb, 16, 64)
+                        part = part + a[:, None, :, s] @ bm[kd, c, :,
+                                                            3 * kh + kw, s]
+            acc = acc + part                      # (blocks, nb, 256, 64)
     y = torch.empty_like(acc)
     y[..., column_channels_bf16()] = acc
-    y = y.permute(1, 0, 2).reshape(b, d, h, w, cout)
+    ry, rx = bf16_row_voxels((th, tw))
+    tiles = torch.empty((acc.shape[0], th, tw, cout))
+    tiles[:, ry, rx] = y.permute(0, 2, 1, 3).reshape(-1, 256, cout)
+    y = tiles.reshape(b, d, nth, ntw, th, tw, cout)
+    y = y.permute(0, 1, 2, 4, 3, 5, 6).reshape(b, d, nth * th, ntw * tw,
+                                               cout)[:, :, :h, :w]
     return _epilogue(y, scale, shift, relu).to(out_dtype)
 
 
@@ -410,12 +478,16 @@ def conv3_mxu_bf16(x, k, scale=None, shift=None, relu=False, out_dtype=None):
     if dev.type != "cuda":
         raise ValueError(f"conv3_mxu_bf16: unsupported device {dev}")
 
-    wp = prepare_weights_bf16(k)
+    # one call lays the weights out into wp (as prepare_weights_bf16) and
+    # runs the conv
+    wp = torch.empty((3, cin // BF16_UNIT, cout // 64, 9, 2, 2, 8, 8, 8),
+                     device=dev, dtype=torch.bfloat16)
     out = torch.empty((b, d, h, w, cout), device=dev, dtype=out_dtype)
     _build.launch(
-        "hp_conv3_mxu_bf16_fwd", x.data_ptr(), wp.data_ptr(),
-        _build.ptr(scale), _build.ptr(shift), out.data_ptr(), b, d, h, w,
-        cin, cout, int(bool(relu)), int(out_dtype == torch.float32),
+        "hp_conv3_mxu_bf16_fwd", x.data_ptr(), k.data_ptr(), wp.data_ptr(),
+        _build.ptr(scale), _build.ptr(shift), out.data_ptr(),
+        _build.int_args(b, d, h, w, cin, cout, int(bool(relu)),
+                        int(out_dtype == torch.float32), *bf16_tile(h, w)),
         device=dev)
     conv3_mxu_bf16.launches += 1
     return out

@@ -335,6 +335,111 @@ def conv3_planes_adjoint_tiled_ref(dz, kernel, *, pad_mode="zero",
                           fold=pad_mode == "edge")
 
 
+def row_pitch16(tw, r):
+    """Values of a staged bf16 row (``conv3p_tile.cuh``'s BF16 ROWS): a
+    multiple of 8 that puts the two thread rows of a warp of a 16-wide tile
+    into distinct banks."""
+    return 48 if tw == 32 else (40 if r == 4 else 48)
+
+
+def bf16_staged_rows(x, plan, b, c, p, h0, *, clamp, w0):
+    """Plane ``p`` of channel ``c`` of batch ``b`` as K1-bf16 leaves it in
+    a ring slot for the block at (h0, w0): (XH, row_pitch16) float32 values
+    of the bf16 ``x``, NaN where the kernel writes nothing.  Column
+    w0 - 1 + xx at index xx + 7; where W % 8 == 0 the tile's own columns
+    arrive as 8-value copies (zero past W) and the halo columns as the
+    4-byte pairs (w0 - 2, w0 - 1) at 6 and (w0 + TW, w0 + TW + 1) at TW + 8
+    (zero where a pair leaves the volume), else as single values (zero
+    outside); a row outside a zero-padded volume is zero, under edge
+    padding the clamped row."""
+    _, _, d, h, w = x.shape
+    tw = plan.tw
+    rows = torch.full((plan.th + 2, row_pitch16(tw, plan.r)), float("nan"))
+    for yy in range(plan.th + 2):
+        gh = h0 - 1 + yy
+        if clamp:
+            gh = min(max(gh, 0), h - 1)
+        src = (x[b, c, p, gh].float() if 0 <= gh < h
+               else torch.zeros(w))
+        if w % 8 == 0:
+            cols = [(8 + j, w0 + j) for j in range(tw)]
+            for at, gw in ((6, w0 - 2), (tw + 8, w0 + tw)):
+                pair_in = 0 <= gw < w
+                cols += [(at, gw if pair_in else -1),
+                         (at + 1, gw + 1 if pair_in else -1)]
+        else:
+            cols = [(xx + 7, w0 - 1 + xx) for xx in range(tw + 2)]
+        for at, gw in cols:
+            rows[yy, at] = src[gw] if 0 <= gw < w else 0.0
+    return rows
+
+
+def bf16_read_columns(plan, w0, w, *, clamp):
+    """(TW, 3): the index in a staged bf16 row that lane ``lane_w`` reads
+    for tap column kw (under edge padding the clamped column's), and
+    (TW, 3) whether that column lies inside the volume."""
+    gw = w0 + torch.arange(plan.tw)[:, None] - 1 + torch.arange(3)[None, :]
+    inside = (gw >= 0) & (gw < w)
+    if clamp:
+        gw = gw.clamp(0, w - 1)
+    return gw - w0 + 8, inside | clamp
+
+
+def conv3_planes_bf16_staged_ref(x, kernel, bias=None, residual=None,
+                                 pre_scale=None, pre_shift=None, *,
+                                 act="none", pad_mode="zero", pre_relu=None,
+                                 plan=None):
+    """K1-bf16's staging in plain PyTorch, for the CPU tests: each block's
+    planes as :func:`bf16_staged_rows` leaves them, each thread's values
+    read through :func:`bf16_read_columns`, widened, the pre-affine applied
+    and a padded position of a zero-padded volume masked to 0, the taps in
+    f32, then bias, residual, act and one rounding to bf16.  A read of a
+    position the kernel never writes turns the output NaN."""
+    b, cin, d, h, w = x.shape
+    cout = kernel.shape[4]
+    plan = plan or tile_plan(b, cin, cout, d, h, w)
+    clamp = pad_mode == "edge"
+    th, tw = plan.th, plan.tw
+    k = kernel.float()
+    out = torch.zeros((b, cout, d, h, w))
+    for bi in range(b):
+        for h0 in range(0, h, th):
+            rin = torch.arange(h0 - 1, h0 + th + 1)
+            rin = (rin >= 0) & (rin < h) | clamp
+            for w0 in range(0, w, tw):
+                cols, cin_ = bf16_read_columns(plan, w0, w, clamp=clamp)
+                mask = (rin[:, None, None] & cin_[None]).float()
+                # every plane's values as the threads read them:
+                # (D, C_in, TH + 2, TW, 3), zero planes outside the volume
+                vals = torch.zeros((d + 2, cin, th + 2, tw, 3))
+                for p in range(-1, d + 1):
+                    if not 0 <= p < d and not clamp:
+                        continue
+                    gp = min(max(p, 0), d - 1)
+                    for c in range(cin):
+                        v = bf16_staged_rows(x, plan, bi, c, gp, h0,
+                                             clamp=clamp, w0=w0)[:, cols]
+                        if pre_relu is not None:
+                            v = v * pre_scale[c] + pre_shift[c]
+                            if pre_relu:
+                                v = torch.relu(v)
+                            v = v * mask
+                        vals[p + 1, c] = v
+                tile = torch.zeros((cout, d, th, tw))
+                for kd in range(3):
+                    for kh in range(3):
+                        tile += torch.einsum(
+                            "dcyxk,kco->odyx", vals[kd:kd + d, :, kh:kh + th],
+                            k[kd, kh])
+                hh, ww = min(th, h - h0), min(tw, w - w0)
+                out[bi, :, :, h0:h0 + hh, w0:w0 + ww] = tile[..., :hh, :ww]
+    if bias is not None:
+        out = out + bias[None, :, None, None, None]
+    if residual is not None:
+        out = out + residual.float()
+    return _activation(out, act).to(torch.bfloat16)
+
+
 def conv3_planes(x, kernel, bias=None, residual=None, pre_scale=None,
                  pre_shift=None, *, act="none", pad_mode="zero",
                  pre_relu=None):
@@ -362,9 +467,10 @@ def conv3_planes_bf16(x, kernel, bias=None, residual=None, pre_scale=None,
     (``conv3_planes`` widens x and the residual, keeps the weights, bias
     and sums in float32 and returns x's type): x and residual bfloat16,
     kernel, bias and pre-affine float32, the result bfloat16, rounded once
-    after the activation.  Otherwise as :func:`conv3_planes`; the same
-    kernel of ``csrc/conv3p.cu``, its planes widened on their way into
-    shared memory, counted apart."""
+    after the activation.  Otherwise as :func:`conv3_planes`; the tile
+    walk of ``csrc/conv3p.cu`` in instances of its own, its planes staged
+    raw by ``cp.async`` and widened where a thread reads them
+    (:func:`conv3_planes_bf16_staged_ref`), counted apart."""
     return _conv3_planes(conv3_planes_bf16, x, kernel, bias, residual,
                          pre_scale, pre_shift, act, pad_mode, pre_relu,
                          torch.bfloat16)

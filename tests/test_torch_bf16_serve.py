@@ -72,6 +72,7 @@ from hiddenpose_tpu_torch.models.blocks import FeatureExtraction
 from hiddenpose_tpu_torch.models.nlospose import NlosPose, build_nlospose
 from hiddenpose_tpu_torch.models.posenet3d import Bottleneck
 from hiddenpose_tpu_torch.ops import kernels as K
+from hiddenpose_tpu_torch.ops.kernels import conv3mxu, conv3p
 from hiddenpose_tpu_torch.serve import InferenceServer
 from hiddenpose_tpu_torch.train.step import make_forward, make_train_step
 from hiddenpose_tpu_torch.utils.jax_bridge import state_dict_from_jax
@@ -323,6 +324,143 @@ def test_k1_bf16_plain_matches_jax(cin, cout, act, residual, pad_mode):
         None if res is None else torch.from_numpy(res).bfloat16(),
         act=act, pad_mode=pad_mode)
     _one_ulp(got, np.asarray(want.astype(jnp.float32)))
+
+
+# K4-bf16's bookkeeping (``conv3mxu.conv3_mxu_bf16_tiled_ref``): each
+# block's 256-voxel tile of one plane, the halo of each stage's input plane
+# staged once, the nine taps' A rows gathered from it, the weights in
+# stage order, one f32 partial a stage.  One case per tile the wrapper
+# picks (``bf16_tile``): 8 x 32 (twice, ragged in H and W), 16 x 16 (the
+# c256 @16^3 plan, two n-blocks), 32 x 8 (twice: C_in 32, one stage a
+# plane, with a ragged W, and C_in 128).  The JAX kernel takes C_in 64
+# (W / 2 % 8 == 0) or a multiple of 128 (W % 8 == 0), so the C_in 32 case
+# is held to the plain conv alone.
+K4_TILED = [((1, 3, 5, 40, 128, 64), True), ((1, 2, 9, 32, 64, 64), True),
+            ((1, 3, 5, 7, 32, 64), False), ((1, 2, 16, 16, 256, 128), True),
+            ((1, 3, 5, 8, 128, 128), True), ((1, 2, 6, 32, 64, 128), True)]
+
+
+@pytest.mark.parametrize("shape,jax_takes", K4_TILED)
+def test_k4_bf16_tiled_ref_matches_jax(shape, jax_takes):
+    """Within one bf16 ulp of the plain conv and of the JAX ``conv3_mxu``
+    at ``cdt='bf16'`` (Pallas interpret mode), and in f32 within the sums'
+    order of the plain conv."""
+    b, d, h, w, cin, cout = shape
+    rng = np.random.RandomState(5)
+    x = _rb(rng, (b, d, h, w, cin))
+    k = _rb(rng, (3, 3, 3, cin, cout), (27 * cin) ** -0.5)
+    sc = (rng.rand(cout) + 0.5).astype(np.float32)
+    sh = (rng.randn(cout) * 0.1).astype(np.float32)
+    xt, kt = torch.from_numpy(x).bfloat16(), torch.from_numpy(k).bfloat16()
+    sct, sht = torch.from_numpy(sc), torch.from_numpy(sh)
+    got = conv3mxu.conv3_mxu_bf16_tiled_ref(xt, kt, sct, sht, relu=True)
+    _one_ulp(got, conv3mxu.conv3_mxu_ref(xt, kt, sct, sht, True).float())
+    if jax_takes:
+        want = jax_conv3_mxu(jnp.asarray(x, BF16), jnp.asarray(k, BF16),
+                             jnp.asarray(sc), jnp.asarray(sh), relu=True,
+                             interpret=True, compute_dtype="bf16")
+        _one_ulp(got, np.asarray(want.astype(jnp.float32)))
+    f32 = conv3mxu.conv3_mxu_bf16_tiled_ref(xt, kt, sct, sht, relu=True,
+                                            out_dtype=torch.float32)
+    plain = conv3mxu.conv3_mxu_ref(xt.float(), kt.float(), sct, sht, True)
+    assert (f32 - plain).abs().max().item() <= 1e-5 * plain.abs().max()
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 128)])
+def test_k4_bf16_weight_layout(cin, cout):
+    """Every element of the prepared weights, read through the MMA's
+    descriptor offsets, is the tap, input channel and output channel that
+    the kernel's stage, k slot and column say."""
+    k = torch.arange(27 * cin * cout, dtype=torch.float64).reshape(
+        3, 3, 3, cin, cout)
+    wp = conv3mxu.prepare_weights_bf16_ref(k)
+    assert wp.shape == (3, cin // 32, cout // 64, 9, 2, 2, 8, 8, 8)
+    b = wp.reshape(3, cin // 32, cout // 64, 9, 2, 1024)
+    b = b[..., conv3mxu.b_offsets_bf16()]  # (kd, c, nb, tap, s, 16, 64)
+    kd, c, nb, t, s, kk, n = torch.meshgrid(
+        *(torch.arange(m) for m in b.shape), indexing="ij")
+    ci = c * 32 + conv3mxu.unit_channels_bf16()[s, kk]
+    co = nb * 64 + conv3mxu.column_channels_bf16()[n]
+    assert torch.equal(b, k[kd, t // 3, t % 3, ci, co])
+
+
+@pytest.mark.parametrize("h,w", [(5, 40), (9, 20), (16, 16), (5, 7),
+                                 (3, 64), (12, 9)])
+def test_k4_bf16_halos_and_tap_rows(h, w):
+    """A block's row m reads, for tap (kh, kw), input voxel (h0 + y + kh -
+    1, w0 + x + kw - 1) of its stage's plane, (y, x) its tile voxel, zero
+    outside the volume; the rows cover the tile once, and row g + 8 of a
+    warp reads at tap (kh, kw) what row g reads at (kh + 1, kw)."""
+    tile = conv3mxu.bf16_tile(h, w)
+    th, tw = tile
+    assert th * tw == 256 and th % 8 == 0
+    ry, rx = conv3mxu.bf16_row_voxels(tile)
+    assert len(set(zip(ry.tolist(), rx.tolist()))) == 256
+    lo = (torch.arange(256) % 16) < 8
+    for kh in range(2):
+        assert torch.equal(conv3mxu.bf16_tap_rows(tile, kh + 1, 1)[lo],
+                           conv3mxu.bf16_tap_rows(tile, kh, 1)[~lo])
+    x = torch.arange(1.0, 2 * 3 * h * w + 1).reshape(1, 2, h, w, 3)
+    halos = conv3mxu.bf16_halos(x, tile)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))  # zeros around the volume
+    ntw = -(-w // tw)
+    for tile_i in range(halos.shape[2]):
+        h0, w0 = (tile_i // ntw) * th, (tile_i % ntw) * tw
+        for kh in range(3):
+            for kw in range(3):
+                rows = halos[:, :, tile_i][:, :, conv3mxu.bf16_tap_rows(
+                    tile, kh, kw)]
+                hh, ww = h0 + ry + kh, w0 + rx + kw  # in xp
+                inside = (hh < h + 2) & (ww < w + 2)
+                want = torch.zeros_like(rows)
+                want[:, :, inside] = xp[:, :, hh[inside], ww[inside]]
+                assert torch.equal(rows, want)
+
+
+# K1-bf16's staging (``conv3p.conv3_planes_bf16_staged_ref``): raw bf16
+# rows in the ring slot as the kernel's copies leave them (16-byte copies
+# and 4-byte halo pairs where W % 8 == 0, single values otherwise; NaN
+# where nothing is written), read through each thread's column indices
+# (the clamped column under edge padding), widened, the pre-affine applied
+# and the zero padding masked after it.
+# The JAX kernel takes H % 8 == 0 and W <= 128: the ragged-H case is held
+# to the plain conv alone.  Under zero padding with a pre-affine the Pallas
+# kernel also pre-affines the zero planes past D (tests/test_torch_conv3p.py
+# says so): there the first and last output planes are left out of the
+# comparison with it.
+@pytest.mark.parametrize("shape,act,residual,pad_mode,pre", [
+    ((2, 1, 1, 3, 8, 32), "leaky", True, "edge", None),   # FeatureExtraction
+    ((1, 1, 1, 3, 8, 80), "leaky", True, "edge", None),   # interior pairs
+    ((1, 4, 8, 4, 8, 40), "none", False, "zero", True),   # pre + zero pad
+    ((1, 3, 5, 3, 8, 13), "none", True, "edge", False),   # W % 8 != 0
+    ((1, 3, 5, 4, 16, 13), "leaky", False, "zero", True),
+    ((1, 2, 4, 3, 9, 40), "leaky", True, "zero", True),   # ragged H and W
+])
+def test_k1_bf16_staging_matches_jax(shape, act, residual, pad_mode, pre):
+    b, cin, cout, d, h, w = shape
+    rng = np.random.RandomState(6)
+    x = _rb(rng, (b, cin, d, h, w))
+    k = (rng.randn(3, 3, 3, cin, cout) * (27 * cin) ** -0.5).astype(
+        np.float32)
+    bias = (rng.randn(cout) * 0.1).astype(np.float32)
+    res = _rb(rng, (b, cout, d, h, w)) if residual else None
+    ps = rng.randn(cin).astype(np.float32) if pre is not None else None
+    pt = rng.randn(cin).astype(np.float32) if pre is not None else None
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    args = (t(x).bfloat16(), t(k), t(bias),
+            None if res is None else t(res).bfloat16(), t(ps), t(pt))
+    kw = dict(act=act, pad_mode=pad_mode, pre_relu=pre)
+    got = conv3p.conv3_planes_bf16_staged_ref(*args, **kw)
+    assert not torch.isnan(got.float()).any()  # nothing unwritten is read
+    _one_ulp(got, conv3p.conv3_planes_ref(*args, **kw).float())
+    if h % 8 == 0:
+        j = lambda a, t=None: None if a is None else jnp.asarray(a, t)
+        want = jax_conv3_planes(j(x, BF16), j(k), j(bias), j(res, BF16),
+                                j(ps), j(pt), interpret=True, **kw)
+        planes = (slice(1, -1) if pad_mode == "zero" and pre is not None
+                  else slice(None))
+        _one_ulp(got[:, :, planes],
+                 np.asarray(want.astype(jnp.float32))[:, :, planes])
 
 
 @pytest.mark.parametrize("kind", ["random", "ties", "negative"])

@@ -939,7 +939,11 @@ def _one_ulp(got, want):
 @pytest.mark.parametrize("residual,pre", [(False, None), (True, True)])
 @pytest.mark.parametrize("shape", [(2, 3, 5, 9, 13, 37),   # W % 8 != 0
                                    (2, 4, 8, 7, 12, 32),   # 16-byte rows
-                                   (1, 1, 1, 16, 16, 16)])
+                                   (1, 1, 1, 16, 16, 16),
+                                   # a ragged second tile along W, and
+                                   # interior halo pairs on both sides
+                                   (1, 2, 3, 5, 9, 40),
+                                   (2, 1, 1, 4, 20, 80)])
 def test_conv3_planes_bf16(dev, shape, pad_mode, act, residual, pre):
     rng = np.random.RandomState(21)
     b, cin, cout, d, h, w = shape
@@ -1006,8 +1010,14 @@ def test_stem_conv_bf16_against_float64(dev):
                        stem_conv.prepare_weights_bf16_ref(k))
 
 
+# Each of the kernel's tiles (conv3mxu.bf16_tile): 16 x 16 (W 9-16, the
+# c256 @16^3 plan), 32 x 8 (W <= 8), 8 x 32 (W > 16, here also with ragged
+# tiles in H and W); a persistent block walks several tiles where the call
+# has more tiles than the card has multiprocessors.
 K4_BF16_CASES = [(2, 16, 16, 16, 64), (1, 8, 8, 8, 128), (2, 6, 6, 6, 256),
-                 (1, 5, 6, 7, 64), (1, 5, 6, 7, 128), (1, 3, 4, 5, 64)]
+                 (1, 5, 6, 7, 64), (1, 5, 6, 7, 128), (1, 3, 4, 5, 64),
+                 (1, 3, 6, 40, 64), (1, 2, 5, 64, 128), (1, 3, 9, 20, 128),
+                 (2, 4, 16, 16, 256), (2, 36, 16, 16, 128)]
 
 
 @pytest.mark.parametrize("epilogue", [False, True])
@@ -1046,6 +1056,23 @@ def test_conv3_mxu_bf16_rectangular_channels(dev, cin, cout):
     x = _b(rng, (1, 4, 5, 9, cin), dev)
     k = _b(rng, (3, 3, 3, cin, cout), dev, 1.0 / np.sqrt(27 * cin))
     _one_ulp(K.conv3_mxu_bf16(x, k), K.conv3_mxu_ref(x, k))
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 6, 40, 64), (1, 3, 9, 20, 128),
+                                   (1, 4, 16, 16, 256), (1, 3, 5, 7, 32)])
+def test_conv3_mxu_bf16_matches_its_tiled_ref(dev, shape):
+    """The f32-output form against the kernel's bookkeeping in plain
+    PyTorch (``conv3_mxu_bf16_tiled_ref``: its halos, tap rows, weight
+    layout and partials), on each tile: the f32 sums' order alone."""
+    rng = np.random.RandomState(29)
+    c = shape[4]
+    x = _b(rng, shape, dev)
+    k = _b(rng, (3, 3, 3, c, 64), dev, 1.0 / np.sqrt(27 * c))
+    got = K.conv3_mxu_bf16(x, k, out_dtype=torch.float32)
+    want = conv3mxu.conv3_mxu_bf16_tiled_ref(x.cpu(), k.cpu(),
+                                             out_dtype=torch.float32)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
 
 
 @pytest.mark.parametrize("cin,cout", [(64, 64), (32, 128), (256, 256)])
