@@ -198,6 +198,39 @@ LIBRARY_READINGS = 20
 # NVIDIA H100 80GB HBM3, 700 W; PERF.md), so the two wider shapes are held
 # at the ratio measured plus about a tenth, not at the target.
 K4_BF16_SLOWER = {64: CONV3P_SLOWER, 128: 1.2, 256: 1.35}
+# Phase 10, one train step with kernels vs one with plain versions, same
+# weights and batch, at 'default' (the plain versions' library convs then
+# take TF32 where K1, K5 and K6 sum in f32) and in the bf16 model (both
+# round to bf16 at the same places, but an output near a rounding boundary
+# rounds the other way), under deterministic algorithms.  Both steps are
+# chaotic at t128: a TF32 or bf16 rounding flips ReLU masks and max-pool
+# winners, so their gradients lie 0.7 (f32) and 1.3 (bf16) apart by
+# relative L2 where phase 6's 'highest' step reads 0.02; the losses, the
+# statistics and the signs of the large gradient elements say more.  The
+# limits are twice the first reading (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md): f32 loss 1.11e-4, gradients 0.72, statistics 2.62e-3, 7.0% of
+# large gradient elements of the other sign; bf16 loss 6.16e-4,
+# gradients 1.28, statistics 2.10e-2, 21% of large gradient elements of
+# the other sign.  The sign floors fail a zeroed backward (no element of
+# one sign) or a negated one (the other sign's share).
+DEFAULT_LOSS_TOL = 2.3e-4
+DEFAULT_GRAD_L2_TOL = 1.5
+DEFAULT_STATS_TOL = 5.3e-3
+DEFAULT_SIGN_AGREE = 0.86
+BF16_TRAIN_LOSS_TOL = 1.3e-3
+BF16_TRAIN_GRAD_L2_TOL = 2.6
+BF16_TRAIN_STATS_TOL = 4.2e-2
+BF16_TRAIN_SIGN_AGREE = 0.58
+# DEFAULT_AWAY: the 'default' step's gradients must lie from phase 6's
+# 'highest' step more than this many times that step's own spread (its
+# plain versions on a measurement moved by 1e-7), in every module (read:
+# 19-39 times).  BF16_TRAIN_AWAY: the bf16 step's losses and statistics
+# must lie from the f32 'default' step's at least this many times as far
+# as that step's kernels lie from its plain versions (read: 18.8 and 11.2
+# times), so that an f32 path posing as bf16 fails; its gradients cannot
+# tell (1.7 times: both sides are chaotic).
+DEFAULT_AWAY = 1.0
+BF16_TRAIN_AWAY = 5.0
 # Phase 8: the dot probe's launch may take this many times torch.matmul's
 PROBE_DOT_SLOWER = 1.1
 DOT_PROBE_TOL = 1e-5
@@ -468,6 +501,13 @@ K1_SHAPES = [
     (4, 4, 64, "zero", "none", False, 1, True, True),
     (8, 4, 128, "zero", "none", False, 1, True, True),    # dec4
 ]
+# Rows (indexes into K1_SHAPES) whose conv the bf16 model runs on an f32
+# input, so through the f32 K1, as the JAX kernel takes it: the UNet's
+# first conv (on the f32 normalised feature) in serving and training, and
+# the FeatureExtraction's first conv (on the f32 measurement; the servers
+# send bf16) in training.
+K1_F32_INPUT_SERVE = (4,)
+K1_F32_INPUT_TRAIN = (0, 4)
 # K1 and K5 off the path, one capture: (c_in, c_out, (D, H, W), pad, the
 # pre-affine's ReLU or None), with residual and leaky: extents that no tile
 # divides, channel counts that fill no channel block.  The pre-affine row
@@ -503,6 +543,18 @@ TRAIN_PER_STEP = {
     "conv3_mxu_dx": sum(r[2] for r in K4_SHAPES),
     "max_pool2_bwd": len(POOL2_SHAPES), "stem_conv_raw": 0,
 }
+# Launches of each kernel in one t128 train step at 'default' (the library
+# forward and K4-dx-bf16 for each admitted conv2), and in the bf16 model's
+# (K1-bf16 and K3-bf16 forward, K1 for the K1_F32_INPUT_TRAIN convs; K5-K8
+# the f32 kernels behind casts).
+TRAIN_DEFAULT_PER_STEP = dict(TRAIN_PER_STEP, conv3_mxu=0, conv3_mxu_dx=0,
+                              conv3_mxu_dx_bf16=TRAIN_PER_STEP["conv3_mxu_dx"])
+TRAIN_BF16_PER_STEP = dict(
+    TRAIN_DEFAULT_PER_STEP,
+    conv3_planes=sum(K1_SHAPES[i][6] for i in K1_F32_INPUT_TRAIN),
+    conv3_planes_bf16=TRAIN_PER_STEP["conv3_planes"] - sum(
+        K1_SHAPES[i][6] for i in K1_F32_INPUT_TRAIN),
+    maxpool3d_k3s2p1=0, maxpool3d_k3s2p1_bf16=1)
 
 
 def phase_kernels(dev):
@@ -1162,7 +1214,7 @@ def phase_train(dev, smi):
         meas.shape, generator=g, device=dev))
     spread = _train_readings(one_step(False), plain)
     batch["meas"] = meas
-    del kern, plain
+    del plain
     for name, r in (("kernels vs plain", vs),
                     ("plain vs plain on a 1e-7 moved measurement", spread)):
         log(f"[6 train] {name}: loss rel {r['loss_rel']}; grads rel L2 "
@@ -1215,7 +1267,15 @@ def phase_train(dev, smi):
     train = dict(steps=steps, peak_memory_bytes=peak, launches=counts,
                  kernels_vs_plain=vs, plain_vs_moved_plain=spread,
                  timing={"kernels": timing[True], "plain": timing[False]})
-    return train, counts
+    # phase 10 reads this step on the host: nothing of it stays on the card
+    # through phases 7-9
+    return train, counts, dict(step=_step_to(kern, "cpu"), spread=spread)
+
+
+def _step_to(result, device):
+    """A step result (dicts of tensors by name) on ``device``."""
+    return {k: ({n: t.to(device) for n, t in v.items()} if k != "loss"
+                else v) for k, v in result.items()}
 
 
 def sformer_weights(cfg):
@@ -1454,9 +1514,12 @@ def bf16_rows(dev):
     rows = {name: [] for name in K.SERVING_BF16}
 
     # K1-bf16: the path's shapes (FeatureExtraction and the UNet, bf16 x
-    # and residual, f32 taps and bias), then two ragged volumes
-    cases = [(cin, cout, (n, n, n), pad, act, res, count)
-             for cin, cout, n, pad, act, res, count, _, _ in K1_SHAPES]
+    # and residual, f32 taps and bias; the UNet's first conv, whose input
+    # is f32, off the path), then two ragged volumes
+    cases = [(cin, cout, (n, n, n), pad, act, res,
+              0 if i in K1_F32_INPUT_SERVE else count)
+             for i, (cin, cout, n, pad, act, res, count, _, _)
+             in enumerate(K1_SHAPES)]
     cases += [(3, 5, (9, 17, 33), "edge", "leaky", True, 0),
               (20, 12, (5, 6, 7), "zero", "leaky", True, 0)]
     for cin, cout, dhw, pad, act, res, count in cases:
@@ -1650,8 +1713,10 @@ def phase_serve_bf16(dev, smi, f32_serve):
             f"{lat[len(lat) // 2] * 1000:.1f} ms under the burst; closed-loop"
             f" p50 {sorted(lat1)[2] * 1000:.1f} ms  [{smi}]")
         log(f"[{tag}] launch counts over the burst: {counts}")
+        f32_in = sum(K1_SHAPES[i][6] for i in K1_F32_INPUT_SERVE)
         per_forward = {
-            "conv3_planes_bf16": sum(row[6] for row in K1_SHAPES),
+            "conv3_planes": f32_in,
+            "conv3_planes_bf16": sum(row[6] for row in K1_SHAPES) - f32_in,
             "stem_conv_raw_bf16": 1, "maxpool3d_k3s2p1_bf16": 1,
             "conv3_mxu_bf16": sum(row[2] for row in K4_SHAPES)}
         want = {k: per_forward.get(k, 0) * batches for k in counts}
@@ -1866,6 +1931,247 @@ def serve_bf16_batch8(dev, smi, cfg, caps, b2_joints, per_forward):
                 results=results)
 
 
+def dx_bf16_rows(dev, smi):
+    """K4-dx-bf16 at the three conv2 shapes of a t128 b2 train step and at
+    one ragged volume: its bf16-output form (the bf16 model's) within one
+    bf16 ulp of its plain version, twice bit for bit, beside the library's
+    ``conv3d_input`` on the same bf16 channels-last tensors (medians of 20
+    readings each, at most CONV3P_SLOWER times its time) and its bound; its
+    f32-output form (the f32 model's, f32 dz rounded by the wrapper)
+    against its plain version and against float64 within F64_ERR_FACTOR
+    times the library f32 conv's error, and its time."""
+    from torch.nn.grad import conv3d_input
+
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.ops.kernels import conv3mxu as k4
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf16, tag = torch.bfloat16, "10 train precision"
+    rows = []
+    cases = [(c, (B, n, n, n), count) for c, n, count in K4_SHAPES]
+    cases.append((64, (1, 5, 6, 7), 0))
+    for c, vol, count in cases:
+        dz = torch.randn((*vol, c), generator=g, device=dev)
+        k = torch.randn((3, 3, 3, c, c), generator=g,
+                        device=dev) * (27 * c) ** -0.5
+        dzb, kb = dz.to(bf16), k.to(bf16)
+        if not torch.equal(k4.prepare_weights_bf16(kb, transposed=True),
+                           k4.prepare_weights_bf16_ref(kb, transposed=True)):
+            raise RuntimeError(f"conv3_mxu_dx_bf16 c{c}: prepared weights "
+                               "differ from the plain version")
+        dz_ncdhw = dzb.permute(0, 4, 1, 2, 3)  # channels-last view
+        w = kb.permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        at = f"c{c}@{'x'.join(map(str, vol[1:]))} b{vol[0]}"
+        flop = 2 * 27 * c * c * (dz.numel() // c)
+        row = compare(
+            f"conv3_mxu_dx_bf16 {at}",
+            lambda: K.conv3_mxu_dx_bf16(dzb, kb, out_dtype=bf16),
+            lambda: K.conv3_mxu_dx_bf16_ref(dzb, kb, out_dtype=bf16),
+            iters=5,
+            library_fn=lambda: conv3d_input(dz_ncdhw.shape, w, dz_ncdhw,
+                                            padding=1),
+            moved=nbytes(dzb, kb, dzb), ops=[(flop, "bf16")], tag=tag,
+            repeats=True, bf16_ulp=True,
+            slower=CONV3P_SLOWER if count else None)
+        if count:
+            row["bound_share"] = row["bound_ms"] / row["ms_median"]
+            log(f"[{tag}] {row['shape']}: {row['bound_share']:.1%} of its "
+                f"bound ({row['bound_ms']:.4f} ms, {row['bound_by']}), "
+                f"{row['ms_median'] / row['library_ms_median']:.3f} x its "
+                f"library call  [{smi}]")
+
+        def dx64():
+            return conv3d_input(
+                dz_ncdhw.shape, w.double(), dz_ncdhw.double(),
+                padding=1).permute(0, 2, 3, 4, 1)
+
+        chk = compare(
+            f"conv3_mxu_dx_bf16 {at} f32 dz, f32 out",
+            lambda: K.conv3_mxu_dx_bf16(dz, k),
+            lambda: K.conv3_mxu_dx_bf16_ref(dz, k), iters=5, tag=tag,
+            repeats=True, moved=nbytes(dz, k, dz), ops=[(flop, "bf16")],
+            f64_fn=dx64)
+        row.update(per_step=count, err_vs_f64=chk["err_vs_f64"],
+                   plain_err_vs_f64=chk["plain_err_vs_f64"],
+                   f32_model_ms=chk["ms"], f32_model_max_abs_err=chk[
+                       "max_abs_err"])
+        rows.append(row)
+    del dz, dzb, dz_ncdhw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _step_result(model, weights, step, batch, lct, use_kernels):
+    """One train step from ``weights`` under deterministic algorithms:
+    its losses, gradients, new parameters and new running statistics."""
+    from hiddenpose_tpu_torch.config import TrainConfig
+    from hiddenpose_tpu_torch.train.state import TrainState
+
+    model.load_state_dict(weights)
+    model.set_use_kernels(use_kernels)
+    st = TrainState.create(model, TrainConfig())
+    with deterministic(warn_only=True):
+        met = step(st, batch, lct)
+    torch.cuda.synchronize()
+    model.set_use_kernels(True)
+    return dict(
+        loss={k: v.item() for k, v in met.items()},
+        grads={n: p.grad.detach().clone()
+               for n, p in model.named_parameters()},
+        params={n: p.detach().clone() for n, p in model.named_parameters()},
+        stats={n: b.clone() for n, b in model.named_buffers()
+               if n.endswith(("running_mean", "running_var"))})
+
+
+def _log_readings(tag, name, r):
+    log(f"[{tag}] {name}: loss rel {r['loss_rel']}; grads rel L2 "
+        f"{r['grad_rel_l2']}; new running stats max rel "
+        f"{r['stats_max_rel']:.3e}; new params max abs err where the "
+        f"gradients agree {r['param_max_abs']:.3e}; large gradient elements "
+        f"of one sign {r['sign_agree']:.5f}")
+
+
+def _timed_steps(tag, dev, step, state, batch, lct, n, per_step, smi):
+    """``n`` Adam steps from the counts at 0: losses and ms by CUDA events,
+    peak memory, the launch counts, which must be ``n`` x ``per_step``;
+    the TF32 flags must read after each step as before it."""
+    from hiddenpose_tpu_torch.ops import kernels as K
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    steps = []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(state, batch, lct)
+        end.record()
+        torch.cuda.synchronize()
+        steps.append(dict({k: v.item() for k, v in metrics.items()},
+                          ms=start.elapsed_time(end)))
+        after = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        log(f"[{tag}] step {i}: loss {steps[-1]['loss']:.6g} (joint "
+            f"{steps[-1]['joint_loss']:.6g}, voxel "
+            f"{steps[-1]['voxel_loss']:.6g}) in {steps[-1]['ms']:.2f} ms; "
+            f"TF32 flags after the step {after}")
+        if after != flags:
+            raise RuntimeError(f"{tag}: the step left the TF32 flags at "
+                               f"{after}, not {flags}")
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[{tag}] peak memory {peak / 2**30:.3f} GiB; launch counts over "
+        f"{n} steps: {counts}  [{smi}]")
+    want = {k: n * per_step.get(k, 0) for k in counts}
+    if counts != want:
+        raise RuntimeError(f"{tag}: launch counts {counts}, expected {want}")
+    if not all(np.isfinite(s_[k]) for s_ in steps
+               for k in ("loss", "joint_loss", "voxel_loss")):
+        raise RuntimeError(f"{tag}: a train step's loss is not finite")
+    return dict(steps=steps, peak_memory_bytes=peak, launches=counts), counts
+
+
+def phase_train_precision(dev, smi, highest):
+    """The train step at the JAX package's default precision and in bf16:
+    K4-dx-bf16's rows; (a) the f32 model at 'default': 3 Adam steps, one
+    step with kernels vs one with plain versions, and its distance from
+    phase 6's 'highest' step (``highest``) against that step's own
+    spread; (b) the f32 model at 'high': one step; (c) the bf16 model at
+    'default': 3 steps, kernels vs plain, and its distance from the f32
+    'default' step."""
+    from hiddenpose_tpu_torch.config import TrainConfig, t128_config
+    from hiddenpose_tpu_torch.data.synthetic import make_batch
+    from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
+
+    tag = "10 train precision"
+    rows = dx_bf16_rows(dev, smi)
+    cfg = t128_config()
+    m = cfg.model
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        [0, 1], m.time_size, m.image_size[0], m.grid_dim, m.heatmap_size[0],
+        m.bin_len).items()}
+    weights = t128_weights(cfg)
+    res, counts = {}, {}
+
+    def run(name, model, lct, precision, n, per_step):
+        step = make_train_step(model, matmul_precision=precision)
+        state = TrainState.create(model, TrainConfig())
+        model.load_state_dict(weights)
+        r, c = _timed_steps(f"{tag}] [{name}", dev, step, state, batch, lct,
+                            n, per_step, smi)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        res[name] = r
+        return step
+
+    # (a), (b): the f32 model
+    model, lct = build_nlospose(m, device=dev)
+    step = run("f32 default", model, lct, "default", 3, TRAIN_DEFAULT_PER_STEP)
+    kern32 = _step_result(model, weights, step, batch, lct, True)
+    plain32 = _step_result(model, weights, step, batch, lct, False)
+    vs = _train_readings(kern32, plain32)
+    _log_readings(tag, "f32 default, kernels vs plain", vs)
+    away = _train_readings(kern32, _step_to(highest["step"], dev))
+    _log_readings(tag, "f32 default vs phase 6's 'highest' step", away)
+    spread = highest["spread"]["grad_rel_l2"]
+    ok = (max(vs["loss_rel"].values()) <= DEFAULT_LOSS_TOL
+          and max(vs["grad_rel_l2"].values()) <= DEFAULT_GRAD_L2_TOL
+          and vs["stats_max_rel"] <= DEFAULT_STATS_TOL
+          and vs["sign_agree"] >= DEFAULT_SIGN_AGREE)
+    log(f"[{tag}] f32 default, kernels vs plain: limits loss "
+        f"{DEFAULT_LOSS_TOL}, grads rel L2 {DEFAULT_GRAD_L2_TOL}, stats "
+        f"{DEFAULT_STATS_TOL}, one sign >= {DEFAULT_SIGN_AGREE}: "
+        f"{'pass' if ok else 'FAIL'}; from 'highest' by module "
+        f"{away['grad_rel_l2']} against phase 6's spread {spread}")
+    if not ok:
+        raise RuntimeError("f32 default step: kernels and plain disagree")
+    if not all(away["grad_rel_l2"][mod] > DEFAULT_AWAY * spread[mod]
+               for mod in spread):
+        raise RuntimeError("the 'default' step's gradients lie within the "
+                           "'highest' step's own spread: no bf16 pass?")
+    res["f32 default"].update(kernels_vs_plain=vs, vs_highest=away)
+    del plain32
+    run("f32 high", model, lct, "high", 1, TRAIN_PER_STEP)
+    del model, lct
+    torch.cuda.empty_cache()
+
+    # (c): the bf16 model
+    model, lct = build_nlospose(cfg.with_bf16().model, device=dev)
+    step = run("bf16 default", model, lct, "default", 3, TRAIN_BF16_PER_STEP)
+    kern16 = _step_result(model, weights, step, batch, lct, True)
+    plain16 = _step_result(model, weights, step, batch, lct, False)
+    vs16 = _train_readings(kern16, plain16)
+    _log_readings(tag, "bf16 default, kernels vs plain", vs16)
+    del plain16
+    to32 = _train_readings(kern16, kern32)
+    _log_readings(tag, "bf16 default vs f32 default (kernels)", to32)
+    ok = (max(vs16["loss_rel"].values()) <= BF16_TRAIN_LOSS_TOL
+          and max(vs16["grad_rel_l2"].values()) <= BF16_TRAIN_GRAD_L2_TOL
+          and vs16["stats_max_rel"] <= BF16_TRAIN_STATS_TOL
+          and vs16["sign_agree"] >= BF16_TRAIN_SIGN_AGREE
+          and max(to32["loss_rel"].values())
+          >= BF16_TRAIN_AWAY * max(vs["loss_rel"].values())
+          and to32["stats_max_rel"] >= BF16_TRAIN_AWAY * vs["stats_max_rel"])
+    log(f"[{tag}] bf16 default: limits kernels vs plain loss "
+        f"{BF16_TRAIN_LOSS_TOL}, grads rel L2 {BF16_TRAIN_GRAD_L2_TOL}, "
+        f"stats {BF16_TRAIN_STATS_TOL}, one sign >= {BF16_TRAIN_SIGN_AGREE}"
+        f"; losses and stats from the f32 step "
+        f"at least {BF16_TRAIN_AWAY} x the f32 kernels-vs-plain distance: "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("bf16 default step: outside its limits")
+    res["bf16 default"].update(kernels_vs_plain=vs16, vs_f32_default=to32)
+    del model, lct, kern16, kern32
+    torch.cuda.empty_cache()
+    return {"conv3_mxu_dx_bf16": rows}, counts, res
+
+
 def phase_probes(dev):
     """The four stem probes, through the script a user would run; then
     each probe kernel against its plain version, timed."""
@@ -1989,7 +2295,7 @@ def main() -> int:
     e2e = timed("5 e2e", phase_end_to_end, server, caps)
     del server
     torch.cuda.empty_cache()
-    train, train_counts = timed("6 train", phase_train, dev, smi)
+    train, train_counts, highest = timed("6 train", phase_train, dev, smi)
     torch.cuda.empty_cache()
     sformer, sformer_counts = timed("7 sformer", phase_sformer, dev, smi)
     probe_rows, probe_counts, probes = timed("8 probes", phase_probes, dev)
@@ -1998,6 +2304,11 @@ def main() -> int:
     bf16_rows_, bf16_counts, serve_bf16 = timed(
         "9 serve bf16", phase_serve_bf16, dev, smi, serve)
     rows.update(bf16_rows_)
+    torch.cuda.empty_cache()
+    prec_rows, prec_counts, train_precision = timed(
+        "10 train precision", phase_train_precision, dev, smi, highest)
+    rows.update(prec_rows)
+    del highest
 
     from hiddenpose_tpu_torch.ops.kernels import KERNELS
 
@@ -2022,10 +2333,11 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             # each main path's launches, counted from 0 just before it:
             # the serving burst, the 3 train steps, the 3 Sformer
-            # captures, the probe script, the bf16 serving burst
+            # captures, the probe script, the bf16 serving burst, phase
+            # 10's 3 + 1 + 3 train steps at 'default', 'high' and bf16
             launches=(serve_counts[name] + train_counts[name]
                       + sformer_counts[name] + probe_counts[name]
-                      + bf16_counts[name]),
+                      + bf16_counts[name] + prec_counts[name]),
             max_abs_err=max(x["max_abs_err"] for x in on_path),
             max_abs_err_all_shapes=max(x["max_abs_err"] for x in r),
             ms=total("ms"), plain_ms=total("plain_ms"),
@@ -2046,7 +2358,8 @@ def main() -> int:
         device=smi, seconds=seconds, kernels=rows, kernels_line=kernels,
         stem_vjp=stem_vjp,
         serve=serve, end_to_end=e2e, train=train, sformer=sformer,
-        probes=probes, serve_bf16=serve_bf16), indent=1))
+        probes=probes, serve_bf16=serve_bf16,
+        train_precision=train_precision), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

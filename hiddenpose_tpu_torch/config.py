@@ -64,8 +64,9 @@ class TrainConfig:
     step_before_epoch: bool = True
     loss_type: str = "L2JointLocationLoss"
     label_smoothing: float = 0.2
-    # 'default' | 'high' | 'highest'; the port runs 'highest' (full f32,
-    # TF32 off) only: train/step.py raises on the others.
+    # 'default' | 'high' | 'highest' (train/step.py: the library in TF32
+    # below 'highest', the Bottleneck dx in one bf16 pass at 'default');
+    # make_train_step itself defaults to 'highest'.
     matmul_precision: str = "default"
 
 

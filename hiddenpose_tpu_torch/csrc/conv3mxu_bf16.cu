@@ -8,8 +8,16 @@
 // one pass on the matrix unit, f32 sums, the affine and ReLU in f32, the
 // result in x's type.  The Bottleneck conv2 of the c64 @64^3, c128 @32^3
 // and c256 @16^3 stages of the bf16 model.  An f32-output instantiation of
-// the same kernel (F32OUT) serves a check against float64 only: a bf16
-// store would hide a fault of the sums.
+// the same kernel (F32OUT) serves a check against float64, and the input
+// gradient of the f32 model's 'default'-precision train step.
+//
+// K4-dx-bf16: the same kernel on the spatially flipped, in/out-swapped
+// taps (the weight preparation's `transposed` flag folds both in) is the
+// Bottleneck conv2's dx at the JAX train step's default precision
+// (conv3mxu.py::_conv3_bwd into conv3_mxu at compute_dtype 'bf16'): dz and
+// the taps rounded to bf16, one bf16 pass, f32 sums, an f32 (F32OUT, the
+// f32 model) or bf16 (the bf16 model) result.  A dx is the forward's conv
+// with C_in and C_out swapped, so everything below holds for it as it is.
 //
 // What bounds it on the card: an implicit GEMM, M = B*D*H*W output voxels,
 // N = C_out, K = 27*C_in, hundreds of FLOP per byte, so bf16 MMA issue
@@ -366,10 +374,13 @@ conv3_bf16_kernel(const __grid_constant__ CUtensorMap x,
 // (kc, ng) of k-step s of tap (kh, kw) of (stage (kd, c), n-block), its 8
 // k values e, k slot 8 kc + e = input channel 32c + 8 (e / 2) + 4s + 2kc +
 // e % 2, at output channel 32 (ng / 4) + 8 (r / 2) + 2 (ng % 4) + r % 2 of
-// the block.
+// the block.  cin and cout are the conv's that the kernel runs; with
+// `transposed`, k is (3, 3, 3, cout, cin), the weights of the forward conv
+// whose dx this is, and tap t of the prepared weights reads its tap 26 - t
+// (the flip of kd, kh and kw) with the channels swapped.
 __global__ void prep_bf16_kernel(const uint16_t* __restrict__ k,
                                  uint4* __restrict__ wp, int cin, int cout,
-                                 int total) {
+                                 int transposed, int total) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int r = idx & 7;
@@ -393,8 +404,10 @@ __global__ void prep_bf16_kernel(const uint16_t* __restrict__ k,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int ci = ci0 + 8 * q + h;  // e = 2q + h
-      pair |= (uint32_t)__ldg(k + ((int64_t)tap * cin + ci) * cout + co)
-              << (16 * h);
+      const int64_t at =
+          transposed ? ((int64_t)(26 - tap) * cout + co) * cin + ci
+                     : ((int64_t)tap * cin + ci) * cout + co;
+      pair |= (uint32_t)__ldg(k + at) << (16 * h);
     }
     v[q] = pair;
   }
@@ -403,14 +416,17 @@ __global__ void prep_bf16_kernel(const uint16_t* __restrict__ k,
 
 }  // namespace
 
-// k (3, 3, 3, C_in, C_out) bf16 -> wp, the conv kernel's weight operand
-// (3 kd, cin / 32, cout / 64, 9 taps, 256) uint4, 16-byte aligned.
+// k (3, 3, 3, C_in, C_out) bf16 (with `transposed`: (3, 3, 3, C_out,
+// C_in), taps flipped and channels swapped on the way) -> wp, the conv
+// kernel's weight operand (3 kd, cin / 32, cout / 64, 9 taps, 256) uint4,
+// 16-byte aligned.
 extern "C" int hp_conv3_mxu_bf16_prep(const void* k, void* wp, int cin,
-                                      int cout, void* stream) {
+                                      int cout, int transposed,
+                                      void* stream) {
   const int total = 27 * (cin / BK) * (cout / BN) * 256;
   prep_bf16_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       static_cast<const uint16_t*>(k), static_cast<uint4*>(wp), cin, cout,
-      total);
+      transposed, total);
   return (int)cudaGetLastError();
 }
 
@@ -426,23 +442,25 @@ namespace {
 EncodeTiled encode_tiled = nullptr;
 }
 
-// x (B, D, H, W, C_in) bf16; k (3, 3, 3, C_in, C_out) bf16, which the call
-// lays out into wp (as hp_conv3_mxu_bf16_prep) before the conv; out (B, D,
-// H, W, C_out) bf16 (f32 with f32_out); all contiguous and 16-byte
-// aligned; C_in % 32 == 0, C_out % 64 == 0.  scale and shift (C_out,) f32
-// are both null (no affine) or both set.  The integers come as one array,
-// p = {B, D, H, W, C_in, C_out, relu, f32_out, th, tw}: the tile th x tw
-// is 256 voxels, 8 x 32, 16 x 16 or 32 x 8 (ops/kernels/conv3mxu.py::
-// bf16_tile).
+// x (B, D, H, W, C_in) bf16; k (3, 3, 3, C_in, C_out) bf16 (with
+// transposed: (3, 3, 3, C_out, C_in), the forward weights of a dx), which
+// the call lays out into wp (as hp_conv3_mxu_bf16_prep) before the conv;
+// out (B, D, H, W, C_out) bf16 (f32 with f32_out); all contiguous and
+// 16-byte aligned; C_in % 32 == 0, C_out % 64 == 0.  scale and shift
+// (C_out,) f32 are both null (no affine) or both set.  The integers come
+// as one array, p = {B, D, H, W, C_in, C_out, relu, f32_out, th, tw,
+// transposed}: the tile th x tw is 256 voxels, 8 x 32, 16 x 16 or 32 x 8
+// (ops/kernels/conv3mxu.py::bf16_tile).
 extern "C" int hp_conv3_mxu_bf16_fwd(const void* x, const void* k, void* wp,
                                      const float* scale, const float* shift,
                                      void* out, const int* p, void* stream) {
   const int B = p[0], D = p[1], H = p[2], W = p[3], cin = p[4], cout = p[5];
   const int relu = p[6], f32_out = p[7], th = p[8], tw = p[9];
+  const int transposed = p[10];
   if (th * tw != BM || (th + 2) * (tw + 2) > HALO_MAX || tw % 8 != 0 ||
       th % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  int err = hp_conv3_mxu_bf16_prep(k, wp, cin, cout, stream);
+  int err = hp_conv3_mxu_bf16_prep(k, wp, cin, cout, transposed, stream);
   if (err) return err;
   if (encode_tiled == nullptr) {
     cudaDriverEntryPointQueryResult found;

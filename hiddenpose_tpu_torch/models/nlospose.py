@@ -16,9 +16,11 @@ in training they run through their ``autograd.Function``s (see
 ``models/posenet3d.py``).
 
 ``cfg.compute_dtype`` 'bfloat16' (``Config.with_bf16()``, the JAX server's
-default) is the JAX package's mixed precision, for serving: parameters stay
-float32 and are cast at use; FeatureExtraction and the UNet run on bf16
-volumes; the LCT and the normalisation run in float32 (the LCT widens its
+default) is the JAX package's mixed precision, for serving and training:
+parameters stay float32 and are cast at use (their gradients come back
+float32, Adam updates them in f32); FeatureExtraction and the UNet run on bf16
+volumes (the FeatureExtraction's first conv on the input in its own type,
+as the JAX kernel takes it); the LCT and the normalisation run in float32 (the LCT widens its
 bf16 input); ``feature + refine`` promotes to float32; the backbone's
 convs round to bf16, its BatchNorms return float32; the heatmaps come out
 bf16 and the soft-argmax widens them.

@@ -19,21 +19,29 @@ In training (or whenever grad mode is on) nothing is folded: the stem is
 the library 7^3 conv with the matrix-product backward of
 ``ops/stem_vjp.py`` (the reference's ``conv_s2d_stem_diff``; plain
 autograd of the library conv with the kernels off), bn1 and ReLU, then the
-differentiable pool (K3 forward, K7 backward); each K4 conv2 runs without epilogue through its
-``autograd.Function`` (K4 forward and dx), then bn2 and ReLU, as the JAX
-package's train path does.  Every BatchNorm is a
-:class:`FlaxBatchNorm3d`: batch statistics in training, and running
-statistics updated with the biased batch variance, as flax does.
+differentiable pool (K3 forward, K7 backward); each conv2 that the JAX
+router admits (:func:`router_admits`: at t128 every stride-1 block of
+width 64-256) runs without epilogue through the route the JAX package
+takes at the ambient matmul precision (``conv3mxu.matmul_precision``,
+set by the train step): 'full' under 'high' and 'highest' (K4 forward
+and K4-dx, :class:`Conv3Mxu`), 'bwd' under 'default' (the library's
+forward and K4-dx-bf16, :class:`Conv3MxuBwd`); then bn2 and ReLU.
+Every BatchNorm is a :class:`FlaxBatchNorm3d`: batch statistics in
+training, and running statistics updated with the biased batch variance,
+as flax does.
 
-The bfloat16 model (``dtype=torch.bfloat16``, serving only) follows the
-JAX package's casts: the stem runs K2-bf16 and K3-bf16 on the input
-rounded to bf16; every conv and deconv takes its input and weight rounded
-to bf16 and returns bf16 (the K4 conv2 with its bn2 affine and ReLU in f32
-before the one rounding; its f32 input is rounded in a separate pass,
-since the kernel's copies cannot convert); every other BatchNorm is flax's
-``nn.BatchNorm`` without a dtype, which returns float32 for a bf16 input
-and float32 parameters, so the residual adds and ReLUs run in f32 and the
-next conv rounds again; the head's final conv adds its bias in bf16.
+The bfloat16 model (``dtype=torch.bfloat16``) follows the JAX package's
+casts: the stem runs K2-bf16 and K3-bf16 on the input rounded to bf16 (in
+training the library conv on bf16 operands, bn1 in f32, the ReLU's output
+rounded to bf16, the pool on bf16); every conv and deconv takes its input
+and weight rounded to bf16 and returns bf16 (the serving K4 conv2 with its
+bn2 affine and ReLU in f32 before the one rounding; its f32 input is
+rounded in a separate pass, since the kernel's copies cannot convert);
+every other BatchNorm is flax's ``nn.BatchNorm`` without a dtype, which
+returns float32 for a bf16 input and float32 parameters (the cotangent of
+its input rounds back to bf16), so the residual adds and ReLUs run in f32
+and the next conv rounds again; the head's final conv adds its bias in
+bf16.
 
 Module names follow the reference PyTorch model (``conv1``/``bn1``,
 ``layer{s}.{b}.conv{1,2,3}``/``bn{1,2,3}``/``downsample.{0,1}``,
@@ -52,6 +60,7 @@ from hiddenpose_tpu_torch.models.blocks import dhwio
 from hiddenpose_tpu_torch.ops.kernels import (
     conv3_mxu,
     conv3_mxu_bf16,
+    conv3_mxu_bwd_diff,
     conv3_mxu_diff,
     conv3_mxu_ref,
     maxpool3d_k3s2p1,
@@ -62,6 +71,7 @@ from hiddenpose_tpu_torch.ops.kernels import (
     stem_conv_raw_bf16,
     stem_conv_raw_ref,
 )
+from hiddenpose_tpu_torch.ops.kernels.conv3mxu import route, router_admits
 from hiddenpose_tpu_torch.ops.stem_vjp import stem_conv_diff
 
 # Bottleneck widths whose stride-1 conv2 runs the K4 kernel (the shapes the
@@ -160,11 +170,17 @@ class Bottleneck(nn.Module):
                      dhwio(self.conv2.weight).to(dt), scale, shift,
                      relu=True)
             out = out.permute(0, 4, 1, 2, 3)
-        elif self.k4:
-            fn = conv3_mxu_diff if self.use_kernels else conv3_mxu_ref
-            out = fn(out.permute(0, 2, 3, 4, 1).contiguous(),
-                     dhwio(self.conv2.weight))
-            out = F.relu(self.bn2(out.permute(0, 4, 1, 2, 3)))
+        elif self.k4 and router_admits(
+                (out.shape[0], *out.shape[2:], out.shape[1]),
+                out.shape[1], out.shape[1]):
+            xin = out.to(dt).permute(0, 2, 3, 4, 1).contiguous()
+            k = dhwio(self.conv2.weight).to(dt)
+            if route() == "bwd":
+                y = conv3_mxu_bwd_diff(xin, k, plain=not self.use_kernels)
+            else:
+                fn = conv3_mxu_diff if self.use_kernels else conv3_mxu_ref
+                y = fn(xin, k)
+            out = F.relu(bn(self.bn2, y.permute(0, 4, 1, 2, 3)))
         else:
             out = F.relu(bn(self.bn2, conv(self.conv2, out, dt)))
         out = bn(self.bn3, conv(self.conv3, out, dt))
@@ -245,9 +261,13 @@ class PoseNet3D(nn.Module):
                      dhwio(self.conv1.weight).to(dt), scale, shift,
                      relu=True)
         else:
-            conv = (stem_conv_diff(x, self.conv1.weight) if self.use_kernels
-                    else F.conv3d(x, self.conv1.weight, padding=3))
-            y = F.relu(self.bn1(conv))
+            dt = self.compute_dtype
+            xs, w = x.to(dt), self.conv1.weight.to(dt)
+            conv = (stem_conv_diff(xs, w) if self.use_kernels
+                    else F.conv3d(xs, w, padding=3))
+            # bn1 on the f32 widening, the ReLU's output in the model's type
+            # (the reference's StemS2D: statistics of an f32 conv output)
+            y = F.relu(self.bn1(conv.float())).to(dt)
             y = y.permute(0, 2, 3, 4, 1).contiguous()
             pool = (maxpool3d_k3s2p1_diff if self.use_kernels
                     else maxpool3d_k3s2p1_ref)

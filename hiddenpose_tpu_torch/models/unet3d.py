@@ -10,14 +10,18 @@ torch ops, and with grad mode on the pools' backward is K8
 Module names follow the reference (``conv``, ``enc{1-4}.encoder.1``,
 ``dec{1-4}.conv``, ``out.conv``; ``double_conv.{0,1,3,4}``).
 
-In the bfloat16 model (serving) the volumes are bf16 throughout, as in the
-JAX package: K1-bf16 convs, GroupNorm with statistics and affine in f32
+In the bfloat16 model (serving and training) the volumes are bf16
+throughout, as in the JAX package: the convs rounded as
+``models/blocks.py`` says, GroupNorm with statistics and affine in f32
 returning bf16, pools and the three per-axis resize passes in bf16 (each
-computed in f32 and rounded, as the JAX einsums with
-``preferred_element_type=x.dtype``), and the output conv in bf16.
+with the weights rounded to bf16, computed in f32 and rounded, as the JAX
+einsums with ``preferred_element_type=x.dtype``), and the output conv in
+bf16.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -81,19 +85,49 @@ class Encoder(nn.Module):
         return self.encoder(x)
 
 
+def interp_matrix(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_out, n_in) linear interpolation weights, align_corners=True (the
+    JAX package's ``_interp_matrix_align_corners``), float32."""
+    if n_in == 1:
+        return torch.ones((n_out, 1))
+    pos = torch.arange(n_out, dtype=torch.float64) * (n_in - 1) \
+        / max(n_out - 1, 1)
+    lo = pos.floor().long().clamp(0, n_in - 1)
+    hi = (lo + 1).clamp(0, n_in - 1)
+    mat = torch.zeros((n_out, n_in), dtype=torch.float64)
+    rows = torch.arange(n_out)
+    mat.index_put_((rows, lo), 1.0 - (pos - lo), accumulate=True)
+    mat.index_put_((rows, hi), pos - lo, accumulate=True)
+    return mat.float()
+
+
 def upsample2(x):
     """Trilinear x2 (align_corners=True) of (B, C, D, H, W).  A float32
     volume in one pass; a bf16 one as the JAX package's three per-axis
-    passes (D, then H, then W), each in f32 and rounded to bf16."""
+    contractions (D, then H, then W) of bf16 operands: each takes the
+    interpolation weights rounded to bf16 (its dot of a bf16 volume and an
+    f32 matrix with a bf16 result), sums in f32 and rounds to bf16."""
     if x.dtype == torch.float32:
         return F.interpolate(x, size=tuple(2 * s for s in x.shape[2:]),
                              mode="trilinear", align_corners=True)
-    size = list(x.shape[2:])
-    for ax in range(3):
-        size[ax] *= 2
-        x = F.interpolate(x.float(), size=tuple(size), mode="trilinear",
-                          align_corners=True).to(x.dtype)
+    dt = x.dtype
+    for ax in (2, 3, 4):
+        m = _rounded_weights(x.shape[ax], dt, x.device)
+        x = torch.movedim(torch.movedim(x.float(), ax, -1) @ m, -1, ax)
+        x = x.to(dt)
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded_weights(n: int, dtype: torch.dtype, device: torch.device):
+    """The (n, 2n) transposed ``interp_matrix`` of a x2 rounded to
+    ``dtype``, in f32 on ``device``: made once a shape, so that a forward
+    copies nothing from the host; an ordinary tensor even when first asked
+    for under ``torch.inference_mode`` (a server's), since training uses it
+    too."""
+    with torch.inference_mode(False):
+        m = interp_matrix(n, 2 * n).to(dtype).float().T.contiguous()
+        return m.to(device)
 
 
 class Decoder(nn.Module):

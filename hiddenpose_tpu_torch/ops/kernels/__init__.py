@@ -19,8 +19,11 @@ from hiddenpose_tpu_torch.ops.kernels.attn import (
 from hiddenpose_tpu_torch.ops.kernels.conv3mxu import (
     conv3_mxu,
     conv3_mxu_bf16,
+    conv3_mxu_bwd_diff,
     conv3_mxu_diff,
     conv3_mxu_dx,
+    conv3_mxu_dx_bf16,
+    conv3_mxu_dx_bf16_ref,
     conv3_mxu_dx_ref,
     conv3_mxu_ref,
 )
@@ -130,6 +133,13 @@ KERNELS = {
         "hiddenpose_tpu_torch/csrc/conv3mxu_bf16.cu",
         "hiddenpose_tpu/ops/pallas/conv3mxu.py:318",
     ),
+    # the train step at the default precision (f32 and bf16 models): the
+    # same TPU kernel at compute_dtype 'bf16' on the flipped, swapped taps
+    "conv3_mxu_dx_bf16": (
+        conv3_mxu_dx_bf16, conv3_mxu_dx_bf16_ref,
+        "hiddenpose_tpu_torch/csrc/conv3mxu_bf16.cu",
+        "hiddenpose_tpu/ops/pallas/conv3mxu.py:318",
+    ),
     "attend": (
         attend, attend_ref,
         "hiddenpose_tpu_torch/csrc/attn.cu",
@@ -153,10 +163,15 @@ KERNELS = {
 }
 
 # The kernels NlosPose's eval (serving) forward launches (the bf16 model's:
-# SERVING_BF16); its train step
-# launches all of NlosPose's but stem_conv_raw (training keeps the library
-# stem conv, as the JAX package does).  The Sformer's and TimeSformer's
-# forward launches "attend"; the probes run from
+# SERVING_BF16, and K1 for the UNet's first conv, whose input is f32).  Its
+# train step (the library stem conv in training, as the JAX package keeps
+# it) at 'high' or 'highest': TRAINING; the f32 model's at 'default', where
+# the Bottleneck conv2 takes the library forward and K4-dx-bf16:
+# TRAINING_DEFAULT; the bf16 model's at 'default': TRAINING_BF16 (K1 for
+# the convs whose input is f32, the FeatureExtraction's and the UNet's
+# first; K1's backward, K7 and K8 are the f32 kernels behind casts, as the
+# JAX wrappers cast to f32 before their pallas_call).  The Sformer's and
+# TimeSformer's forward launches "attend"; the probes run from
 # scripts/torch_diag_stem_paired.py.
 SERVING = ("conv3_planes", "stem_conv_raw", "maxpool3d_k3s2p1", "conv3_mxu")
 SERVING_BF16 = ("conv3_planes_bf16", "stem_conv_raw_bf16",
@@ -164,6 +179,13 @@ SERVING_BF16 = ("conv3_planes_bf16", "stem_conv_raw_bf16",
 TRAINING = ("conv3_planes", "maxpool3d_k3s2p1", "conv3_mxu", "conv3_mxu_dx",
             "conv3_planes_adjoint", "conv3_planes_wgrad",
             "maxpool3d_k3s2p1_vjp", "max_pool2_bwd")
+TRAINING_DEFAULT = ("conv3_planes", "maxpool3d_k3s2p1", "conv3_mxu_dx_bf16",
+                    "conv3_planes_adjoint", "conv3_planes_wgrad",
+                    "maxpool3d_k3s2p1_vjp", "max_pool2_bwd")
+TRAINING_BF16 = ("conv3_planes", "conv3_planes_bf16", "maxpool3d_k3s2p1_bf16",
+                 "conv3_mxu_dx_bf16", "conv3_planes_adjoint",
+                 "conv3_planes_wgrad", "maxpool3d_k3s2p1_vjp",
+                 "max_pool2_bwd")
 SFORMER = ("attend",)
 PROBES = ("probe_im2col", "probe_slice_transpose", "probe_dot_f32")
 

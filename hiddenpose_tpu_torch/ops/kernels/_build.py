@@ -54,7 +54,7 @@ SIGNATURES = {
     "hp_maxpool3d_k3s2p1_bf16": [_P] * 2 + [_I] * 8 + [_P],
     "hp_conv3_mxu_prep": [_P] * 2 + [_I] * 3 + [_P],
     "hp_conv3_mxu_fwd": [_P] * 5 + [_I] * 7 + [_P],
-    "hp_conv3_mxu_bf16_prep": [_P] * 2 + [_I] * 2 + [_P],
+    "hp_conv3_mxu_bf16_prep": [_P] * 2 + [_I] * 3 + [_P],
     "hp_conv3_mxu_bf16_fwd": [_P] * 7 + [_P],
     "hp_stem_conv_bf16_prep": [_P] * 2 + [_P],
     "hp_stem_conv_bf16_fwd": [_P] * 5 + [_I] * 6 + [_P],

@@ -31,7 +31,12 @@ default ``compute_dtype='bf16'``: bf16 operands, one pass on the tensor
 cores with f32 sums, the affine and ReLU in f32, a bf16 result.  Its own
 kernel, ``csrc/conv3mxu_bf16.cu``; :func:`prepare_weights_bf16_ref` and
 :func:`conv3_mxu_bf16_tiled_ref` write its bookkeeping out in plain
-PyTorch.
+PyTorch.  The same kernel on the flipped, swapped taps is
+:func:`conv3_mxu_dx_bf16` (K4-dx-bf16, counted apart): the input gradient
+of the train step at the JAX package's default precision, where the JAX
+router takes 'bwd' (the library's forward, :class:`Conv3MxuBwd`) and
+resolves the kernel's compute dtype to bf16 (:func:`route`,
+:func:`compute_dtype`).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  A wrapper also raises when an input
@@ -40,6 +45,8 @@ requires grad and grad mode is on: under autograd only
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +62,36 @@ def conv3mxu_supported(cin: int, cout: int) -> bool:
     """Channel counts the kernel takes (its 16-deep k-slices lie inside one
     tap; its 64-wide output tiles never straddle C_out)."""
     return cin % 16 == 0 and cout % 64 == 0 and cin > 0 and cout > 0
+
+
+# The JAX router's packed-weight budget of one call (``_KB_BUDGET``): a
+# shape whose f32 operand exceeds it needs a C_out split, which the router
+# leaves off the path (layer4's c512).
+_ROUTER_WEIGHT_BUDGET = 12 * 1024 * 1024
+
+
+def router_admits(shape, cin: int, cout: int) -> bool:
+    """The shapes the JAX router sends to its kernel, ``conv3mxu_supported``
+    (``hiddenpose_tpu/ops/pallas/conv3mxu.py:72-114``) without its
+    environment overrides: ``shape`` (B, D, H, W, C_in); C_out a multiple
+    of 64; C_in 64 with W / 2 a multiple of 8, or a multiple of 128 with W
+    a multiple of 8; H >= 3; the packed f32 weights within one call's
+    budget.  A train step routes a Bottleneck conv2 through K4 or
+    K4-dx-bf16 exactly where this holds, so that it rounds at the JAX
+    step's convs at every size (at t128 all 11 calls; at tiny(32) not
+    c256 @4^3)."""
+    _, d, h, w, _ = shape
+    if cout % 64 or cout < 64:
+        return False
+    if cin == 64:
+        if w % 2 or (w // 2) % 8 or w // 2 < 8:
+            return False
+    elif cin % 128 or w % 8:
+        return False
+    if h < 3 or d < 1:
+        return False
+    lanes = 2 * cout if cin == 64 else cout
+    return 3 * max(cin, 128) * 9 * lanes * 4 <= _ROUTER_WEIGHT_BUDGET
 
 
 def _conv_ndhwc(x, k):
@@ -238,25 +275,25 @@ conv3_mxu_dx.launches = 0
 
 
 class Conv3Mxu(torch.autograd.Function):
-    """Differentiable K4 without epilogue: forward K4, dx K4 on the
-    flipped, swapped taps, dk the library's weight gradient."""
+    """Differentiable K4 without epilogue (the 'full' route): forward K4,
+    dx K4 on the flipped, swapped taps, dk the library's weight gradient.
+    For bfloat16 x and k (the bf16 model under 'high' or 'highest', where
+    the JAX kernel computes in f32: ``conv3mxu.py:396`` widens, ``:453``
+    writes x's type) both kernels take the widened operands and their f32
+    result is rounded once to bf16."""
 
     @staticmethod
     def forward(ctx, x, k):
         ctx.save_for_backward(x, k)
-        return conv3_mxu(x, k)
+        return conv3_mxu(x.float(), k.float()).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, k = ctx.saved_tensors
-        g = g.contiguous()
         need_x, need_k = ctx.needs_input_grad
-        dx = conv3_mxu_dx(g, k) if need_x else None
-        dk = None
-        if need_k:
-            dk = torch.nn.grad.conv3d_weight(
-                x.permute(0, 4, 1, 2, 3), (k.shape[4], k.shape[3], 3, 3, 3),
-                g.permute(0, 4, 1, 2, 3), padding=1).permute(2, 3, 4, 1, 0)
+        dx = (conv3_mxu_dx(g.float().contiguous(), k.float()).to(x.dtype)
+              if need_x else None)
+        dk = _library_dk(x, k, g) if need_k else None
         return dx, dk
 
 
@@ -340,11 +377,15 @@ def b_offsets_bf16():
     return k % 8 + 8 * (n % 8) + 512 * (k // 8) + 64 * (n // 8)
 
 
-def prepare_weights_bf16_ref(k):
+def prepare_weights_bf16_ref(k, transposed=False):
     """Plain version of :func:`prepare_weights_bf16`: ``k`` (3, 3, 3, C_in,
-    C_out) DHWIO bf16 laid out as (3 kd, C_in / 32, C_out / 64, 9 taps
-    (kh, kw), 2 k-steps, 2 core matrices along k, 8 along n, 8 rows, 8)
-    bf16: a stage's (kd, 32-channel block, n-block) B is one run."""
+    C_out) DHWIO bf16, or with ``transposed`` its :func:`flip_swap`, laid
+    out as (3 kd, C_in / 32, C_out / 64, 9 taps (kh, kw), 2 k-steps, 2 core
+    matrices along k, 8 along n, 8 rows, 8) bf16 (C_in, C_out: the conv's
+    that the kernel runs): a stage's (kd, 32-channel block, n-block) B is
+    one run."""
+    if transposed:
+        k = flip_swap(k)
     cin, cout = k.shape[3], k.shape[4]
     c32, nb = cin // BF16_UNIT, cout // 64
     w = k.reshape(3, 9, c32, BF16_UNIT, nb, 64)
@@ -356,20 +397,21 @@ def prepare_weights_bf16_ref(k):
     return w.contiguous()
 
 
-def prepare_weights_bf16(k):
+def prepare_weights_bf16(k, transposed=False):
     """The bf16 kernel's weight operand (see
     :func:`prepare_weights_bf16_ref`), made by one small kernel of
-    ``csrc/conv3mxu_bf16.cu`` for a CUDA tensor."""
+    ``csrc/conv3mxu_bf16.cu`` for a CUDA tensor (the tap flip and the
+    channel swap folded into its reads)."""
     if k.device.type == "cpu":
-        return prepare_weights_bf16_ref(k)
+        return prepare_weights_bf16_ref(k, transposed)
     if k.device.type != "cuda":
         raise ValueError(f"prepare_weights_bf16: unsupported device "
                          f"{k.device}")
-    cin, cout = k.shape[3], k.shape[4]
+    cin, cout = (k.shape[4], k.shape[3]) if transposed else k.shape[3:]
     wp = torch.empty((3, cin // BF16_UNIT, cout // 64, 9, 2, 2, 8, 8, 8),
                      device=k.device, dtype=torch.bfloat16)
     _build.launch("hp_conv3_mxu_bf16_prep", k.data_ptr(), wp.data_ptr(), cin,
-                  cout, device=k.device)
+                  cout, int(transposed), device=k.device)
     return wp
 
 
@@ -447,12 +489,9 @@ def conv3_mxu_bf16(x, k, scale=None, shift=None, relu=False, out_dtype=None):
     then optional ReLU.  Returns (B, D, H, W, C_out) bfloat16: the products
     exact, the sums, affine and ReLU in f32, one rounding.
     ``out_dtype=torch.float32`` keeps the f32 result unrounded: a check's
-    form of the same kernel (a bf16 store would hide a fault of the sums),
-    never the model's."""
-    out_dtype = torch.bfloat16 if out_dtype is None else out_dtype
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"out_dtype must be bfloat16 or float32, "
-                         f"got {out_dtype}")
+    form of the forward (a bf16 store would hide a fault of the sums), and
+    the form :func:`conv3_mxu_dx_bf16` takes for the f32 model."""
+    out_dtype = _bf16_out_dtype(out_dtype)
     if x.dim() != 5:
         raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
     b, d, h, w, cin = x.shape
@@ -478,8 +517,29 @@ def conv3_mxu_bf16(x, k, scale=None, shift=None, relu=False, out_dtype=None):
     if dev.type != "cuda":
         raise ValueError(f"conv3_mxu_bf16: unsupported device {dev}")
 
-    # one call lays the weights out into wp (as prepare_weights_bf16) and
-    # runs the conv
+    out = _launch_bf16(x, k, cin, cout, scale, shift, relu, out_dtype,
+                       transposed=False)
+    conv3_mxu_bf16.launches += 1
+    return out
+
+
+conv3_mxu_bf16.launches = 0
+
+
+def _bf16_out_dtype(out_dtype):
+    out_dtype = torch.bfloat16 if out_dtype is None else out_dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, "
+                         f"got {out_dtype}")
+    return out_dtype
+
+
+def _launch_bf16(x, k, cin, cout, scale, shift, relu, out_dtype, transposed):
+    """One call of the bf16 kernel for the conv C_in -> C_out that it runs:
+    it lays the weights out into wp (as :func:`prepare_weights_bf16`, with
+    ``transposed`` from the forward weights of a dx) and runs the conv."""
+    b, d, h, w, _ = x.shape
+    dev = x.device
     wp = torch.empty((3, cin // BF16_UNIT, cout // 64, 9, 2, 2, 8, 8, 8),
                      device=dev, dtype=torch.bfloat16)
     out = torch.empty((b, d, h, w, cout), device=dev, dtype=out_dtype)
@@ -487,10 +547,159 @@ def conv3_mxu_bf16(x, k, scale=None, shift=None, relu=False, out_dtype=None):
         "hp_conv3_mxu_bf16_fwd", x.data_ptr(), k.data_ptr(), wp.data_ptr(),
         _build.ptr(scale), _build.ptr(shift), out.data_ptr(),
         _build.int_args(b, d, h, w, cin, cout, int(bool(relu)),
-                        int(out_dtype == torch.float32), *bf16_tile(h, w)),
+                        int(out_dtype == torch.float32), *bf16_tile(h, w),
+                        int(transposed)),
         device=dev)
-    conv3_mxu_bf16.launches += 1
     return out
 
 
-conv3_mxu_bf16.launches = 0
+# ------------------------------------------------- the train step's routes
+# The JAX package picks, at trace time, how a K4-eligible Bottleneck conv2
+# runs in a train step from the ambient matmul precision.  Both of its
+# choices are ported without their environment overrides (TPU A/B knobs).
+# The ambient precision is this module's, set for a block by
+# :func:`matmul_precision` (the train step's scope) and process-wide, as
+# the library's TF32 flags that the step sets beside it.
+PRECISIONS = ("default", "high", "highest")
+_ambient = ["highest"]
+
+
+def check_precision(precision: str) -> str:
+    if precision not in PRECISIONS:
+        raise ValueError(f"matmul_precision must be one of {PRECISIONS}, "
+                         f"got {precision!r}")
+    return precision
+
+
+def current_precision() -> str:
+    """The ambient matmul precision: 'highest' outside a
+    :func:`matmul_precision` block."""
+    return _ambient[0]
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """``precision`` is the ambient one for the duration of the block (as
+    ``jax.default_matmul_precision`` is for a trace)."""
+    saved = _ambient[0]
+    _ambient[0] = check_precision(precision)
+    try:
+        yield
+    finally:
+        _ambient[0] = saved
+
+
+def route(precision: str | None = None) -> str:
+    """``_route_policy`` (``hiddenpose_tpu/ops/pallas/conv3mxu.py:
+    639-659``) at ``precision`` (the ambient one if None): 'full' (K4
+    forward, K4-dx: :class:`Conv3Mxu`) under 'high' and 'highest', which
+    ``kernel_dot_precision`` escalates to HIGHEST; 'bwd' (the library's
+    forward, K4-dx-bf16: :class:`Conv3MxuBwd`) under 'default'."""
+    precision = current_precision() if precision is None else precision
+    return "bwd" if check_precision(precision) == "default" else "full"
+
+
+def compute_dtype(precision: str) -> str:
+    """``resolve_compute_dtype`` (``:592-610``): the kernel multiplies f32
+    operands ('f32': three TF32 passes here) under 'high' and 'highest',
+    bf16-rounded ones under 'default'."""
+    return "bf16" if check_precision(precision) == "default" else "f32"
+
+
+def conv3_mxu_dx_bf16_ref(dz, k, out_dtype=torch.float32):
+    """Plain version of :func:`conv3_mxu_dx_bf16`: ``conv3d_input`` of dz
+    and k rounded to bf16, in float32 (products of bf16 values are exact
+    there), the result in ``out_dtype``."""
+    bf16 = torch.bfloat16
+    dx = conv3_mxu_dx_ref(dz.detach().to(bf16).float(),
+                          k.detach().to(bf16).float())
+    return dx.to(out_dtype)
+
+
+def conv3_mxu_dx_bf16(dz, k, out_dtype=torch.float32):
+    """K4-dx-bf16, the input gradient of the train step at the default
+    precision (``_conv3_bwd`` into ``conv3_mxu`` at ``compute_dtype=
+    'bf16'``, ``hiddenpose_tpu/ops/pallas/conv3mxu.py:569-576``): dz (B, D,
+    H, W, C_out) and the forward's k (3, 3, 3, C_in, C_out), float32 or
+    bfloat16, both rounded to bf16 (dz by a cast before the kernel, as the
+    JAX wrapper's ``astype``; k in the weight preparation, which also flips
+    the taps and swaps the channels), one pass of the bf16 kernel with f32
+    sums.  Returns (B, D, H, W, C_in) in ``out_dtype``: float32 for the
+    f32 model (the kernel's f32-output form), bfloat16 for the bf16
+    model."""
+    out_dtype = _bf16_out_dtype(out_dtype)
+    if dz.dim() != 5 or k.dim() != 5 or tuple(k.shape[:3]) != (3, 3, 3) \
+            or k.shape[4] != dz.shape[4]:
+        raise ValueError(f"dz {tuple(dz.shape)} must be (B, D, H, W, C_out) "
+                         f"of k (3, 3, 3, C_in, C_out), got {tuple(k.shape)}")
+    cin, cout = k.shape[3], k.shape[4]
+    if not conv3mxu_bf16_supported(cout, cin):
+        raise ValueError(f"conv3_mxu_dx_bf16 runs the kernel {cout} -> {cin}: "
+                         "needs C_out % 32 == 0 and C_in % 64 == 0")
+    for t, name in ((dz, "dz"), (k, "k")):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: expected float32 or bfloat16, got "
+                            f"{t.dtype}")
+    _build.no_grad_inputs("conv3_mxu_dx_bf16", dz, k, use="conv3_mxu_bwd_diff")
+    dev = dz.device
+    if dev.type == "cpu":
+        return conv3_mxu_dx_bf16_ref(dz, k, out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"conv3_mxu_dx_bf16: unsupported device {dev}")
+    dzb, kb = dz.to(torch.bfloat16), k.to(torch.bfloat16)
+    _build.check(dzb, "dz", device=dev, aligned=True, dtype=torch.bfloat16)
+    _build.check(kb, "k", device=dev, dtype=torch.bfloat16)
+    out = _launch_bf16(dzb, kb, cout, cin, None, None, False, out_dtype,
+                       transposed=True)
+    conv3_mxu_dx_bf16.launches += 1
+    return out
+
+
+conv3_mxu_dx_bf16.launches = 0
+
+
+def conv3_library(x, k):
+    """The library's SAME 3^3 conv of NDHWC x and DHWIO k, in x's type
+    (the JAX package's ``_conv3_native``: a bf16 conv returns bf16)."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), k.permute(4, 3, 0, 1, 2),
+                 padding=1)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _library_dk(x, k, g):
+    """The library's weight gradient in x's type (``_conv3_dk_native``:
+    f32 sums), in k's type and DHWIO."""
+    dk = torch.nn.grad.conv3d_weight(
+        x.permute(0, 4, 1, 2, 3), (k.shape[4], k.shape[3], 3, 3, 3),
+        g.to(x.dtype).permute(0, 4, 1, 2, 3), padding=1)
+    return dk.permute(2, 3, 4, 1, 0).to(k.dtype)
+
+
+class Conv3MxuBwd(torch.autograd.Function):
+    """The 'bwd' route (``conv3_mxu_bwd_diff``, ``:544-589``): the
+    library's forward in x's type, dx by :func:`conv3_mxu_dx_bf16` in x's
+    type (its plain version with ``plain``), dk by the library's weight
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, k, plain):
+        ctx.save_for_backward(x, k)
+        ctx.plain = plain
+        return conv3_library(x, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        need_x, need_k = ctx.needs_input_grad[:2]
+        g = g.contiguous()
+        dx_fn = conv3_mxu_dx_bf16_ref if ctx.plain else conv3_mxu_dx_bf16
+        dx = dx_fn(g, k, out_dtype=x.dtype) if need_x else None
+        dk = _library_dk(x, k, g) if need_k else None
+        return dx, dk, None
+
+
+def conv3_mxu_bwd_diff(x, k, plain=False):
+    """The library's conv of NDHWC x and DHWIO k (float32, or bfloat16 in
+    and out), differentiable, with K4-dx-bf16 for dx (its plain version
+    with ``plain``)."""
+    return Conv3MxuBwd.apply(x, k, plain)

@@ -716,16 +716,21 @@ class Conv3Planes(torch.autograd.Function):
     """Differentiable K1: the port of ``_conv3p_diff``
     (``hiddenpose_tpu/ops/pallas/conv3p.py:1242-1317``).
 
-    Forward K1, saving the output when ``act != 'none'``.  Backward:
-    dz = g masked by ``out > 0`` (relu) or ``out >= 0 -> 1, else 0.2``
-    (leaky); dx by K5 (only when x needs a gradient), dk and db by K6,
-    dres = dz."""
+    Forward K1 (K1-bf16 for a bfloat16 x and residual), saving the output
+    when ``act != 'none'``.  Backward, in f32 as the JAX one (``g`` widened,
+    ``:1263``): dz = g masked by ``out > 0`` (relu) or ``out >= 0 -> 1,
+    else 0.2`` (leaky), ``out`` the saved output in x's type; dx by K5
+    (only when x needs a gradient), dk and db by K6 on x widened; dx and
+    dres = dz in x's and the residual's type, dk and db in f32 (the
+    kernel's and bias's).  So a bf16 step runs the f32 K5 and K6 behind
+    the JAX wrapper's casts."""
 
     @staticmethod
     def forward(ctx, x, kernel, bias, residual, act, pad_mode):
-        out = conv3_planes(x, kernel, bias, residual, act=act,
-                           pad_mode=pad_mode)
+        fwd = conv3_planes_bf16 if x.dtype == torch.bfloat16 else conv3_planes
+        out = fwd(x, kernel, bias, residual, act=act, pad_mode=pad_mode)
         ctx.act, ctx.pad_mode = act, pad_mode
+        ctx.res_dtype = None if residual is None else residual.dtype
         ctx.save_for_backward(x, kernel, out if act != "none" else None)
         return out
 
@@ -733,7 +738,7 @@ class Conv3Planes(torch.autograd.Function):
     def backward(ctx, g):
         x, kernel, out = ctx.saved_tensors
         need_x, need_k, need_b, need_res = ctx.needs_input_grad[:4]
-        g = g.contiguous()
+        g = g.float().contiguous()
         if ctx.act == "relu":
             dz = torch.where(out > 0, g, 0.0)
         elif ctx.act == "leaky":
@@ -741,17 +746,18 @@ class Conv3Planes(torch.autograd.Function):
         else:
             dz = g
         dx = (conv3_planes_adjoint(dz, kernel, pad_mode=ctx.pad_mode)
-              if need_x else None)
+              .to(x.dtype) if need_x else None)
         dk = db = None
         if need_k or need_b:
-            dk, db = conv3_planes_wgrad(x, dz, pad_mode=ctx.pad_mode,
+            dk, db = conv3_planes_wgrad(x.float(), dz, pad_mode=ctx.pad_mode,
                                         has_bias=need_b)
-        return (dx, dk if need_k else None, db, dz if need_res else None,
-                None, None)
+        dres = dz.to(ctx.res_dtype) if need_res else None
+        return dx, dk if need_k else None, db, dres, None, None
 
 
 def conv3_planes_diff(x, kernel, bias=None, residual=None, *, act="none",
                       pad_mode="zero"):
     """Differentiable :func:`conv3_planes` (no pre-affine, as the JAX
-    package's ``conv3_planes_diff``)."""
+    package's ``conv3_planes_diff``); :func:`conv3_planes_bf16` for a
+    bfloat16 x."""
     return Conv3Planes.apply(x, kernel, bias, residual, act, pad_mode)

@@ -231,19 +231,25 @@ maxpool3d_k3s2p1_vjp.launches = 0
 
 
 class MaxPoolK3S2P1(torch.autograd.Function):
-    """Differentiable stem pool: forward K3, backward K7."""
+    """Differentiable stem pool: forward K3 (K3-bf16 for a bfloat16 y),
+    backward K7.  On bf16 the backward is the f32 K7 on y and g widened,
+    its result rounded to bf16, as the JAX pair does (``phase_pool.py:376,
+    412`` cast to f32 before the pallas_call, ``:433`` back to y2's type)."""
 
     @staticmethod
     def forward(ctx, y):
         ctx.save_for_backward(y)
+        if y.dtype == torch.bfloat16:
+            return maxpool3d_k3s2p1_bf16(y)
         return maxpool3d_k3s2p1(y)
 
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
-        return maxpool3d_k3s2p1_vjp(y, g.contiguous())
+        return maxpool3d_k3s2p1_vjp(y.float(),
+                                    g.float().contiguous()).to(y.dtype)
 
 
 def maxpool3d_k3s2p1_diff(y):
-    """Differentiable :func:`maxpool3d_k3s2p1`."""
+    """Differentiable :func:`maxpool3d_k3s2p1` (float32 or bfloat16)."""
     return MaxPoolK3S2P1.apply(y)

@@ -117,7 +117,10 @@ max_pool2_bwd.launches = 0
 
 
 class MaxPool2(torch.autograd.Function):
-    """Differentiable MaxPool3d(2): library forward, backward K8."""
+    """Differentiable MaxPool3d(2): library forward, backward K8.  On
+    bf16 the backward is the f32 K8 on x and g widened (a widening keeps
+    every window's order), its result in x's type, as the JAX wrapper
+    casts (``pool2p.py:140-141, 181``)."""
 
     @staticmethod
     def forward(ctx, x):
@@ -127,9 +130,10 @@ class MaxPool2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return max_pool2_bwd(x, g.contiguous())
+        return max_pool2_bwd(x.float(), g.float().contiguous()).to(x.dtype)
 
 
 def max_pool2_diff(x):
-    """Differentiable ``F.max_pool3d(x, 2)`` whose backward is K8."""
+    """Differentiable ``F.max_pool3d(x, 2)`` (float32 or bfloat16) whose
+    backward is K8."""
     return MaxPool2.apply(x)

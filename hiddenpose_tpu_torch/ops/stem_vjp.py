@@ -29,9 +29,19 @@ products, one depth tap ``a`` at a time so that no full im2col matrix
 One scratch buffer of k^2 x D H W floats serves both the patches and U_a of
 every (sample, tap) pair.  Everything is ``torch.matmul`` / ``torch.bmm``
 and copies: the reference computes these products outside any Pallas
-kernel, so no hand-written kernel stands here.  float32 throughout (the
-reference's bf16 operand cast is for its own hardware and off on its CPU
-oracle); any floating dtype works, which the float64 tests use.
+kernel, so no hand-written kernel stands here.  float32 throughout for the
+float32 model (the reference's bf16 operand cast of f32 operands is for its
+own hardware and off on its CPU oracle); any floating dtype works, which
+the float64 tests use.
+
+The bfloat16 model's stem conv takes bf16 x and weight (the reference's
+``conv_s2d_stem_diff`` on bf16 operands, ``space_to_depth.py:191-197,
+250-252``): its backward widens them to f32, which holds every product of
+two bf16 values exactly (TF32 too), runs the same f32 products and sums,
+and returns dx and dk in the operands' type: the contract of bf16 operands
+with f32 sums.  (The reference also rounds its s2d-space partial products
+to bf16 before the shifted adds; the port's partial products are other
+sums, of the raw volume's taps, so that rounding has no counterpart here.)
 """
 
 from __future__ import annotations
@@ -97,8 +107,9 @@ def stem_conv_dx(weight, dy):
 
 
 class StemConvDiff(torch.autograd.Function):
-    """Forward: the library conv.  Backward: :func:`stem_conv_dx` (skipped
-    when x needs no gradient) and :func:`stem_conv_dk`."""
+    """Forward: the library conv, in x's type.  Backward:
+    :func:`stem_conv_dx` (skipped when x needs no gradient) and
+    :func:`stem_conv_dk`, for bf16 operands on their f32 widening."""
 
     @staticmethod
     def forward(ctx, x, weight):
@@ -109,13 +120,17 @@ class StemConvDiff(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         need_x, need_k = ctx.needs_input_grad
-        dx = stem_conv_dx(weight, dy) if need_x else None
-        dk = stem_conv_dk(x, dy, weight.shape[2]) if need_k else None
+        dtype = x.dtype
+        if dtype == torch.bfloat16:
+            x, weight, dy = x.float(), weight.float(), dy.float()
+        dx = stem_conv_dx(weight, dy).to(dtype) if need_x else None
+        dk = stem_conv_dk(x, dy, weight.shape[2]).to(dtype) if need_k else None
         return dx, dk
 
 
 def stem_conv_diff(x, weight):
     """``F.conv3d(x, weight, padding=k // 2)`` for x (B, 1, D, H, W) and
-    weight (C_out, 1, k, k, k), k odd, with the matrix-product backward."""
+    weight (C_out, 1, k, k, k), k odd, with the matrix-product backward;
+    both float32, or both bfloat16 (a bf16 result)."""
     _check(x, weight)
     return StemConvDiff.apply(x, weight)

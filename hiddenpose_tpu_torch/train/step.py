@@ -5,23 +5,41 @@ joint loss + voxel loss, backward, Adam update), ``make_eval_step`` and
 ``make_forward``.  The JAX package jits each step; PyTorch runs eagerly,
 and the train step updates the :class:`TrainState` in place.
 
-Precision: only float32 at 'highest' is ported.  The kernels of the
-forward and of the backward never take a single TF32 pass: all are fp32
-FMA but the Bottleneck 3^3 conv and its dx (``ops/kernels/conv3mxu.py``),
-which run each product in three TF32 passes with f32 sums, as accurate
-against float64 as an f32 conv.  For a model on a GPU the step turns TF32
-off for cuDNN and cuBLAS (as ``build_nlospose`` does), so the library
-convs and matmuls are full f32 as well.
+Precision: ``make_train_step(model, matmul_precision=p)`` runs the JAX
+step traced under ``jax.default_matmul_precision(p)``, for a float32 or a
+bfloat16 (``Config.with_bf16()``) model:
+
+* 'highest' (this port's default, phase 6 of ``chip_smoke.py``): cuDNN and
+  cuBLAS in full f32 (TF32 off); each K4-eligible Bottleneck conv2 on the
+  'full' route, K4 and K4-dx in three TF32 passes with f32 sums, as
+  accurate against float64 as an f32 conv; every other kernel fp32 FMA.
+* 'high': the library's f32 convs and matmuls in TF32 (the JAX GPU
+  backend's 'high'); the kernels as at 'highest' (the JAX kernels escalate
+  'high' to HIGHEST).
+* 'default' (the JAX ``TrainConfig``'s, ``cfg.train.matmul_precision``):
+  the library in TF32; the conv2 on the 'bwd' route, the library's forward
+  and K4-dx-bf16 for dx (dz and the taps rounded to bf16, one pass).
+
+A bf16 model's convs are bf16 whatever the precision; its f32 ops (the
+LCT, the norms) follow the flags.  The flags are process-wide: the step
+sets them on entry and restores them on exit.  So a step at 'default' or
+'high' must not run beside a live float32 server in the same process,
+whose forwards would take TF32 meanwhile.  The JAX rounds found that one
+bf16 pass makes the loss fall 2-3x slower (BENCH_NOTES "Precision IS the
+learning-gap driver"), which is why this port's default stays 'highest':
+pass ``cfg.train.matmul_precision`` for the JAX package's default.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
 
 from hiddenpose_tpu_torch.losses import bce_dice_loss, l2_joint_location_loss
 from hiddenpose_tpu_torch.models.nlospose import NlosPose
+from hiddenpose_tpu_torch.ops.kernels import conv3mxu
 from hiddenpose_tpu_torch.ops.lct import LCTParams
 from hiddenpose_tpu_torch.ops.softargmax import softmax_integral
 from hiddenpose_tpu_torch.train.state import TrainState
@@ -31,38 +49,53 @@ Batch = Dict[str, torch.Tensor]
 #               joints (B, J*3), joints_vis (B, J*3)
 
 
+@contextlib.contextmanager
+def precision_scope(model: NlosPose, precision: str):
+    """For the duration of the block: ``precision`` ambient for the conv2
+    routes (``conv3mxu.matmul_precision``) and, for a model on a GPU, TF32
+    in cuDNN and cuBLAS on for 'default' and 'high', off for 'highest';
+    both restored on exit."""
+    cuda = next(model.parameters()).is_cuda
+    # the per-backend flags only: the global float32 matmul precision
+    # raises in some PyTorch versions once the two backends differ
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    with conv3mxu.matmul_precision(precision):
+        try:
+            if cuda:
+                tf32 = precision != "highest"
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                torch.backends.cudnn.allow_tf32 = tf32
+            yield
+        finally:
+            if cuda:
+                torch.backends.cuda.matmul.allow_tf32 = saved[0]
+                torch.backends.cudnn.allow_tf32 = saved[1]
+
+
 def make_train_step(model: NlosPose, matmul_precision: str = "highest"):
     """Returns train_step(state, batch, lct) -> metrics, which puts the
     model in training mode, takes one Adam step on ``state`` (whose model
-    must be ``model``) and returns the detached loss, joint_loss and
-    voxel_loss of the forward before the update."""
-    if model.compute_dtype != torch.float32:
-        raise NotImplementedError(
-            "a bfloat16 model serves only: bf16 training is not ported "
-            "(ROADMAP Queue 1 item 4)")
-    if matmul_precision != "highest":
-        raise NotImplementedError(
-            f"matmul_precision={matmul_precision!r}: only 'highest' (f32, "
-            "TF32 off) is ported; the precision knob is ROADMAP Queue 1 "
-            "item 7")
-    if next(model.parameters()).is_cuda:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    must be ``model``) at ``matmul_precision`` ('default', 'high' or
+    'highest'; see the module's docstring) and returns the detached loss,
+    joint_loss and voxel_loss of the forward before the update."""
+    conv3mxu.check_precision(matmul_precision)
 
     def train_step(state: TrainState, batch: Batch,
                    lct: LCTParams) -> Dict[str, torch.Tensor]:
         if state.model is not model:
             raise ValueError("state.model is not the model of this step")
         model.train()
-        heatmaps, refine = model(batch["meas"], lct)
-        joint_loss = l2_joint_location_loss(
-            heatmaps, batch["joints"], batch["joints_vis"])
-        b = refine.shape[0]
-        voxel_loss = bce_dice_loss(refine.reshape(b, -1),
-                                   batch["vol"].reshape(b, -1))
-        loss = joint_loss + voxel_loss
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with precision_scope(model, matmul_precision):
+            heatmaps, refine = model(batch["meas"], lct)
+            joint_loss = l2_joint_location_loss(
+                heatmaps, batch["joints"], batch["joints_vis"])
+            b = refine.shape[0]
+            voxel_loss = bce_dice_loss(refine.reshape(b, -1),
+                                       batch["vol"].reshape(b, -1))
+            loss = joint_loss + voxel_loss
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         state.apply_gradients()
         return {"loss": loss.detach(), "joint_loss": joint_loss.detach(),
                 "voxel_loss": voxel_loss.detach()}

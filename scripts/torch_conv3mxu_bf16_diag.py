@@ -119,7 +119,8 @@ def main() -> int:
         wp = k4.prepare_weights_bf16(k)
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream().cuda_stream
-        ints = _build.int_args(2, n, n, n, c, c, 1, 0, *k4.bf16_tile(n, n))
+        ints = _build.int_args(2, n, n, n, c, c, 1, 0, *k4.bf16_tile(n, n),
+                               0)
 
         def run(fn):
             err = fn(x.data_ptr(), k.data_ptr(), wp.data_ptr(),

@@ -2,13 +2,18 @@
 goes, on one GPU.
 
     python3 scripts/torch_stage_profile.py [--dtype bfloat16]
+    python3 scripts/torch_stage_profile.py --train default [--dtype bfloat16]
 
 Run from the root of a checkout on a host with an NVIDIA GPU, with the
 weights and captures of ``chip_smoke.py`` (t128, batch 2, float32, TF32
 off).  ``--dtype bfloat16`` measures the bfloat16 model instead
 (``Config.with_bf16()``, the servers' default): sections 1 and 2 only, the
 stages with its bf16 kernels and plain versions and its server's burst,
-and writes ``chiprun_out/torch_stage_profile_bf16.json``.  It measures:
+and writes ``chiprun_out/torch_stage_profile_bf16.json``.  ``--train
+PRECISION`` measures section 3 alone, the train step at that matmul
+precision ('default', 'high' or 'highest') for the model of ``--dtype``,
+and writes ``chiprun_out/torch_stage_profile_train_{dtype}_{precision}
+.json``.  It measures:
 
 1. per stage of ``NlosPose.forward`` (FeatureExtraction, LCT, normalize,
    UNet, stem, layer1-4, head, soft-argmax), CUDA events around each
@@ -66,10 +71,13 @@ BF16_KERNELS = ("conv3_bf16_kernel", "prep_bf16_kernel",
 # K9's device kernels: the grouped form, the split over the keys (the
 # joint-token read) and the pass that combines its chunks.
 K9_KERNELS = ("attend_tc_kernel", "attend_tc_split_kernel", "combine_kernel")
-# K6's two passes, K7 and K8, by device kernel
+# K6's two passes, K7 and K8, by device kernel; K4-bf16's kernel and its
+# weight preparation are K4-dx-bf16's in a step at 'default'
 TRAIN_KERNELS = K4_KERNELS + ("conv3p_wgrad_partial", "conv3p_wgrad_reduce",
                               "maxpool_k3s2p1_vjp_kernel",
-                              "maxpool2_bwd_kernel")
+                              "maxpool2_bwd_kernel", "conv3_bf16_kernel",
+                              "prep_bf16_kernel", "conv3p_tile_kernel",
+                              "maxpool_k3s2p1_bf16_kernel")
 # Pieces of the t128 batch-2 train step, by (op, input shapes): a label and
 # the substrings a profiler key must hold.  The stem conv's matrix-product
 # backward (ops/stem_vjp.py: per sample and depth tap one batched product
@@ -308,6 +316,31 @@ def device_profile(tag, fn, also=(), ops_like=None):
                 device_ms_by_op_and_shapes=dict(top_ops))
 
 
+def train_profile(model, lct, cfg, dev, precision):
+    """Section 3: one train step at ``precision`` under the profiler, after
+    one warm-up step (cuDNN's algorithm choice), and its peak memory."""
+    from hiddenpose_tpu_torch.config import TrainConfig
+    from hiddenpose_tpu_torch.data.synthetic import make_batch
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
+
+    m = cfg.model
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        [0, 1], m.time_size, m.image_size[0], m.grid_dim, m.heatmap_size[0],
+        m.bin_len).items()}
+    state = TrainState.create(model, TrainConfig())
+    step = make_train_step(model, matmul_precision=precision)
+    step(state, batch, lct)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    train = device_profile("train", lambda: step(state, batch, lct),
+                           also=TRAIN_KERNELS, ops_like=TRAIN_OPS)
+    train["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(f"[train] {m.compute_dtype} at {precision!r}: peak memory "
+          f"{train['peak_memory_bytes'] / 2**30:.3f} GiB", flush=True)
+    return train
+
+
 def out_conv_forms(dev):
     """The UNet's 1x1x1 output conv at (2, 4, 128^3) -> (2, 1, 128^3),
     forward and backward (ms, CUDA events, mean of 5, in turns): the
@@ -344,18 +377,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    from hiddenpose_tpu_torch.config import TrainConfig
-    from hiddenpose_tpu_torch.data.synthetic import make_batch
     from hiddenpose_tpu_torch.models.nlospose import build_nlospose
     from hiddenpose_tpu_torch.serve import InferenceServer
-    from hiddenpose_tpu_torch.train.state import TrainState
-    from hiddenpose_tpu_torch.train.step import make_train_step
 
     import argparse
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--train", choices=("default", "high", "highest"))
     args = ap.parse_args()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -368,6 +398,16 @@ def main() -> int:
         cfg = cfg.with_bf16()
     model, lct = build_nlospose(cfg.model, device=dev)
     model.load_state_dict(sd)
+    if args.train:
+        train = train_profile(model, lct, cfg, dev, args.train)
+        print(smi, flush=True)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / f"torch_stage_profile_train_{args.dtype}_{args.train}.json"
+         ).write_text(json.dumps(dict(device=smi, dtype=args.dtype,
+                                      precision=args.train,
+                                      train_step=train), indent=1))
+        return 0
     meas = torch.from_numpy(np.stack(caps[:B])).to(dev)
 
     stages = []
@@ -407,23 +447,10 @@ def main() -> int:
 
     model, lct = build_nlospose(cfg.model, device=dev)
     model.load_state_dict(sd)
-    m = cfg.model
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
-        [0, 1], m.time_size, m.image_size[0], m.grid_dim, m.heatmap_size[0],
-        m.bin_len).items()}
-    state = TrainState.create(model, TrainConfig())
-    step = make_train_step(model)
-    step(state, batch, lct)  # warm-up: cuDNN's algorithm choice
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    train = device_profile("train", lambda: step(state, batch, lct),
-                           also=TRAIN_KERNELS, ops_like=TRAIN_OPS)
-    train["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
-    print(f"[train] peak memory "
-          f"{train['peak_memory_bytes'] / 2**30:.3f} GiB", flush=True)
+    train = train_profile(model, lct, cfg, dev, "highest")
     out_conv = out_conv_forms(dev)
     print(smi, flush=True)
-    del model, state, step, batch
+    del model
     torch.cuda.empty_cache()
     sformer = sformer_profile(dev, smi)
 

@@ -612,15 +612,20 @@ def test_bottleneck_matches_jax_fused_route(monkeypatch):
 
 def test_bf16_model_routes_and_refuses_training():
     """The bf16 model's convs are bf16 modules, its parameters float32;
-    make_train_step refuses it (bf16 training is not ported)."""
+    make_train_step builds its step at every precision the JAX package
+    knows and refuses any other.  (Before bf16 training was ported it
+    refused the model; ``tests/test_torch_train_precision.py`` holds the
+    bf16 step against the JAX package's.)"""
     model, _ = build_nlospose(Config().tiny(SIZE).with_bf16().model,
                               device="cpu")
     assert model.compute_dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert Config().with_bf16().model.compute_dtype == "bfloat16"
     assert t128_config().with_bf16().model.grid_dim == 128
-    with pytest.raises(NotImplementedError):
-        make_train_step(model)
+    for precision in ("default", "high", "highest"):
+        assert callable(make_train_step(model, matmul_precision=precision))
+    with pytest.raises(ValueError):
+        make_train_step(model, matmul_precision="bf16")
 
 
 # ---------------------------------------------------------------- (d)
@@ -716,16 +721,46 @@ def test_bf16_server_batches_concurrent_requests():
 
 def test_upsample_rounds_per_axis():
     """The bf16 UNet's trilinear x2 is the JAX package's three per-axis
-    passes, each rounded to bf16: equal to rounding after each axis of
-    the f32 resize, and not in general to one rounding at the end."""
+    passes (``resize_trilinear_planes``), each a contraction of the bf16
+    volume with the interpolation weights rounded to bf16, summed in f32
+    and rounded to bf16: equal to the JAX function, and not in general to
+    the per-axis passes with exact weights nor to one rounding at the
+    end."""
+    from hiddenpose_tpu.models.unet3d import resize_trilinear_planes
     from hiddenpose_tpu_torch.models.unet3d import upsample2
 
     x = torch.from_numpy(np.random.RandomState(8).randn(
         1, 3, 3, 4, 5).astype(np.float32)).bfloat16()
     got = upsample2(x)
     assert got.dtype == torch.bfloat16 and got.shape == (1, 3, 6, 8, 10)
+    want = resize_trilinear_planes(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), (6, 8, 10))
+    assert want.dtype == jnp.bfloat16
+    assert torch.equal(got.float(),
+                       torch.from_numpy(np.asarray(want, np.float32)))
     y = x.float()
     for size in ((6, 4, 5), (6, 8, 5), (6, 8, 10)):
         y = F.interpolate(y, size=size, mode="trilinear",
                           align_corners=True).bfloat16().float()
-    assert torch.equal(got.float(), y)
+    once = F.interpolate(x.float(), size=(6, 8, 10), mode="trilinear",
+                         align_corners=True).bfloat16().float()
+    assert not torch.equal(got.float(), y)
+    assert not torch.equal(got.float(), once)
+
+
+def test_upsample_serves_then_trains():
+    """The bf16 upsample's weights, made once a shape, are ordinary tensors
+    even when a server's inference-mode forward makes them first: a train
+    step on the same shapes then differentiates through them."""
+    from hiddenpose_tpu_torch.models.unet3d import upsample2
+
+    x = torch.from_numpy(np.random.RandomState(9).randn(
+        1, 2, 7, 5, 3).astype(np.float32)).bfloat16()
+    with torch.inference_mode():
+        want = upsample2(x)
+    xt = x.clone().requires_grad_()
+    got = upsample2(xt)
+    got.float().sum().backward()
+    assert torch.equal(got.detach(), want)
+    assert xt.grad.dtype == torch.bfloat16 and torch.isfinite(
+        xt.grad.float()).all()

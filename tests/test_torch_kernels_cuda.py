@@ -1132,3 +1132,138 @@ def test_bf16_wrappers_raise_rather_than_fall_back(dev):
         K.maxpool3d_k3s2p1_bf16(xb[..., :12].contiguous())  # C % 8 != 0
     with pytest.raises(TypeError):
         K.maxpool3d_k3s2p1(xb)
+
+
+# ------------------------------- the train step at the default precision
+# K4-dx-bf16 (conv3_mxu_dx_bf16): the bf16 kernel on the flipped, swapped
+# taps, the Bottleneck dx of a train step at 'default'.  Its bf16-output
+# form (the bf16 model's) within one bf16 ulp of the plain version, twice
+# bit for bit; its f32-output form (the f32 model's, on f32 dz) against
+# float64 at most twice the library f32 conv's error (TF32 off) on the
+# same bf16-rounded operands, or four f32 ulps of the largest output
+# (2^-21 of it), where that is more: the tensor core truncates inside each
+# 288-product partial, which at these short sums costs the kernel a couple
+# of ulps where cuDNN's round-to-nearest f32 sums may err by one, and their
+# ratio is then chance (read on the card at (1, 2, 5, 64, 128): the kernel
+# 1.19e-06, 2.3 ulps of the largest output, cuDNN 5.8e-07 in one call and
+# over 5.9e-07 in another; at the path's shapes phase 10 reads the kernel
+# at 0.14-0.27 of cuDNN's error).
+
+@pytest.mark.parametrize("shape", K4_BF16_CASES)
+def test_conv3_mxu_dx_bf16(dev, shape):
+    rng = np.random.RandomState(30)
+    c = shape[4]
+    dz = _t(rng, shape, dev)
+    k = _t(rng, (3, 3, 3, c, c), dev, 1.0 / np.sqrt(27 * c))
+    dzb, kb = dz.to(torch.bfloat16), k.to(torch.bfloat16)
+    got = _counted(K.conv3_mxu_dx_bf16, lambda: K.conv3_mxu_dx_bf16(
+        dzb, kb, out_dtype=torch.bfloat16))
+    _one_ulp(got, K.conv3_mxu_dx_bf16_ref(dzb, kb, out_dtype=torch.bfloat16))
+    assert torch.equal(got, K.conv3_mxu_dx_bf16(dzb, kb,
+                                                out_dtype=torch.bfloat16))
+    f32 = K.conv3_mxu_dx_bf16(dz, k)
+    want = K.conv3_mxu_dx_bf16_ref(dz, k)
+    want64 = _conv64(dzb, conv3mxu.flip_swap(kb))
+    torch.cuda.synchronize()
+    assert f32.dtype == torch.float32
+    err, err_plain = ((t.double() - want64).abs().max().item()
+                      for t in (f32, want))
+    ulps = 4 * 2.0 ** -23 * want64.abs().max().item()
+    assert err <= max(2 * err_plain, ulps), (err, err_plain, ulps)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 32), (128, 64), (64, 96),
+                                      (128, 256)])
+def test_conv3_mxu_dx_bf16_rectangular_channels(dev, cin, cout):
+    """dx of a conv C_in -> C_out runs the kernel C_out -> C_in: C_out of
+    one or an odd number of 32-channel units, C_in of several 64-wide
+    output blocks; the weight preparation's flip and swap bit for bit."""
+    rng = np.random.RandomState(31)
+    dz = _b(rng, (1, 4, 5, 9, cout), dev)
+    k = _b(rng, (3, 3, 3, cin, cout), dev, 1.0 / np.sqrt(27 * cout))
+    _one_ulp(K.conv3_mxu_dx_bf16(dz, k, out_dtype=torch.bfloat16),
+             K.conv3_mxu_dx_bf16_ref(dz, k, out_dtype=torch.bfloat16))
+    assert torch.equal(conv3mxu.prepare_weights_bf16(k, transposed=True),
+                       conv3mxu.prepare_weights_bf16_ref(k, transposed=True))
+
+
+def test_conv3_mxu_bwd_route_matches_plain_autograd(dev):
+    """Conv3MxuBwd (the 'bwd' route) on the GPU against its plain form:
+    the same library forward and dk call, dx the kernel against its plain
+    version (f32 out, the same exact products summed in another order):
+    each within 1e-5 of its max."""
+    rng = np.random.RandomState(32)
+    x = _t(rng, (2, 6, 8, 16, 64), dev).requires_grad_()
+    k = _t(rng, (3, 3, 3, 64, 64), dev, 0.05).requires_grad_()
+    g = _t(rng, (2, 6, 8, 16, 64), dev)
+    out, got = _grads(lambda a, b: K.conv3_mxu_bwd_diff(a, b), [x, k], g)
+    want_out, want = _grads(
+        lambda a, b: K.conv3_mxu_bwd_diff(a, b, plain=True), [x, k], g)
+    for a, b in ((out, want_out), (got[0], want[0]), (got[1], want[1])):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item())
+
+
+def _tiny_train(dev, bf16, precision, flags=None):
+    """One tiny train step at ``precision``; ``flags`` (cuDNN's and
+    cuBLAS's allow_tf32), if given, are set after the model is built (which
+    turns both off) and just before the step."""
+    from hiddenpose_tpu_torch.config import TrainConfig, default_config
+    from hiddenpose_tpu_torch.data.synthetic import make_batch
+    from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
+    from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+
+    cfg = default_config().tiny(32)
+    m = (cfg.with_bf16() if bf16 else cfg).model
+    model, lct = build_nlospose(m, device=dev)
+    model.load_state_dict(peaked_state_dict(model, 1))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        [0, 1], m.time_size, m.image_size[0], m.grid_dim, m.heatmap_size[0],
+        m.bin_len).items()}
+    state = TrainState.create(model, TrainConfig())
+    if flags is not None:
+        torch.backends.cudnn.allow_tf32 = flags[0]
+        torch.backends.cuda.matmul.allow_tf32 = flags[1]
+    K.reset_launch_counts()
+    metrics = make_train_step(model, matmul_precision=precision)(
+        state, batch, lct)
+    torch.cuda.synchronize()
+    return model, metrics, K.launch_counts()
+
+
+@pytest.mark.parametrize("cudnn,matmul", [(False, False), (True, True),
+                                          (True, False)])
+def test_default_step_restores_the_tf32_flags(dev, cudnn, matmul):
+    """A step at 'default' takes TF32 for its duration only: the flags of
+    cuDNN and cuBLAS read after it as before it, whatever they were; it
+    launches K4-dx-bf16 and no K4."""
+    try:
+        model, metrics, counts = _tiny_train(dev, False, "default",
+                                             flags=(cudnn, matmul))
+        assert torch.backends.cudnn.allow_tf32 == cudnn
+        assert torch.backends.cuda.matmul.allow_tf32 == matmul
+        assert conv3mxu.current_precision() == "highest"
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.isfinite(metrics["loss"])
+    assert all(counts[k] > 0 for k in K.TRAINING_DEFAULT), counts
+    assert counts["conv3_mxu"] == counts["conv3_mxu_dx"] == 0
+
+
+def test_bf16_train_step_on_the_gpu_reaches_every_weight(dev):
+    """One tiny bf16 step at 'default': the loss is finite, every kernel of
+    the bf16 train path launched (of the f32 forward kernels only K1,
+    twice: the FeatureExtraction's and the UNet's first convs, whose inputs
+    are f32), and every float32 parameter got a float32 gradient."""
+    model, metrics, counts = _tiny_train(dev, True, "default")
+    assert torch.isfinite(metrics["loss"])
+    assert all(counts[k] > 0 for k in K.TRAINING_BF16), counts
+    assert counts["conv3_planes"] == 2
+    assert counts["maxpool3d_k3s2p1"] == 0
+    assert counts["conv3_mxu"] == counts["conv3_mxu_bf16"] == 0
+    for n, p in model.named_parameters():
+        assert p.dtype == torch.float32 and p.grad is not None, n
+        assert p.grad.dtype == torch.float32, n

@@ -325,6 +325,7 @@ def _raw_calls():
         "conv3_planes_wgrad": lambda: K.conv3_planes_wgrad(x, x),
         "conv3_mxu": lambda: K.conv3_mxu(xm, km),
         "conv3_mxu_dx": lambda: K.conv3_mxu_dx(xm, km),
+        "conv3_mxu_dx_bf16": lambda: K.conv3_mxu_dx_bf16(xm, km),
         "maxpool3d_k3s2p1": lambda: K.maxpool3d_k3s2p1(y),
         "maxpool3d_k3s2p1_vjp": lambda: K.maxpool3d_k3s2p1_vjp(
             y, torch.zeros((1, 2, 2, 2, 4))),
@@ -374,7 +375,8 @@ def test_raw_wrappers_refuse_inputs_that_require_grad(name):
 
 def test_every_kernel_is_listed():
     assert set(K.KERNELS) == (set(K.SERVING) | set(K.SERVING_BF16)
-                              | set(K.TRAINING) | set(K.SFORMER)
+                              | set(K.TRAINING) | set(K.TRAINING_DEFAULT)
+                              | set(K.TRAINING_BF16) | set(K.SFORMER)
                               | set(K.PROBES))
     assert set(K.KERNELS) == set(_raw_calls())
     for name, (wrapper, ref, source, replaces) in K.KERNELS.items():

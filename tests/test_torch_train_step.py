@@ -49,11 +49,12 @@ from hiddenpose_tpu.train.state import TrainState as JaxTrainState
 from hiddenpose_tpu.train.step import make_eval_step as jax_make_eval_step
 from hiddenpose_tpu.train.step import make_train_step as jax_make_train_step
 from hiddenpose_tpu.utils.torch_import import convert_state_dict
-from hiddenpose_tpu_torch.config import TrainConfig
+from hiddenpose_tpu_torch.config import Config as PortConfig, TrainConfig
 from hiddenpose_tpu_torch.data.synthetic import make_batch
 from hiddenpose_tpu_torch.losses import bce_dice_loss, l2_joint_location_loss
 from hiddenpose_tpu_torch.models.nlospose import NlosPose, build_nlospose
 from hiddenpose_tpu_torch.models.posenet3d import FlaxBatchNorm3d
+from hiddenpose_tpu_torch.ops.kernels import conv3mxu
 from hiddenpose_tpu_torch.train.optim import multistep_lr
 from hiddenpose_tpu_torch.train.state import TrainState
 from hiddenpose_tpu_torch.train.step import (
@@ -380,10 +381,25 @@ def test_eval_step_matches_jax():
                                    atol=1e-4 * np.abs(w).max(), err_msg=k)
 
 
-def test_only_highest_precision_is_ported():
-    model, _ = _port(16)
-    for prec in ("default", "high"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+@pytest.mark.parametrize("bf16", [False, True])
+def test_every_precision_and_dtype_builds_a_step(bf16):
+    """'default', 'high' and 'highest' each build a step for a float32 and
+    a bfloat16 model, which runs (tiny(16), one step each); the ambient
+    precision is 'highest' again after each step; anything else raises."""
+    cfg = PortConfig().tiny(16)
+    cfg = cfg.with_bf16() if bf16 else cfg
+    model, lct = build_nlospose(cfg.model, device="cpu")
+    model.load_state_dict(state_dict_from_jax(_jax_tree(16)))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(16).items()}
+    assert model.compute_dtype == (torch.bfloat16 if bf16 else torch.float32)
+    for prec in ("default", "high", "highest"):
+        state = TrainState.create(model, TrainConfig())
+        metrics = make_train_step(model, matmul_precision=prec)(
+            state, batch, lct)
+        assert np.isfinite(float(metrics["loss"])), prec
+        assert conv3mxu.current_precision() == "highest", prec
+    for prec in ("fastest", "float32", None):
+        with pytest.raises(ValueError, match="matmul_precision"):
             make_train_step(model, matmul_precision=prec)
 
 
