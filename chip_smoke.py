@@ -51,19 +51,19 @@ lines:
    per capture and peak memory of each; then the bfloat16 mode's ms, peak
    memory and distance from the float32 logits;
 8. probes: the four stem probes of ``scripts/torch_diag_stem_paired.py``;
-   the dot probe's launch is also timed alone, into a preallocated output,
-   beside ``torch.matmul`` into one (medians of 20 readings each, taken in
-   turns), and may take at most 1.1 times as long;
+   each probe's launch is also timed alone, into preallocated outputs
+   (medians of 20 readings); the dot probe's beside ``torch.matmul`` into
+   one (taken in turns), and may take at most 1.1 times as long;
 9. serve bf16: the bfloat16 model's kernels (K1-bf16, K2-bf16, K3-bf16,
    K4-bf16) against their plain versions at the path's shapes and off it:
    within one bf16 ulp of each output (K3 exact), two calls bit for bit,
    K2-bf16 and K4-bf16 in their f32-output form against float64 (at most
    F64_ERR_FACTOR times the library f32 conv's error on the widened
-   operands); every K1-bf16 and K4-bf16 row of the path beside its library
-   call (``F.conv3d`` on the same bf16 tensors), medians of 20 readings
-   each, taken in turns, where it may take at most 1.1 times as long
-   (K4-bf16 at c128 and c256: ``K4_BF16_SLOWER``, the ratio measured), and
-   each K4-bf16 row's share of its bound; then
+   operands); every K1-bf16, K2-bf16 and K4-bf16 row of the path beside
+   its library call (``F.conv3d`` on the same bf16 tensors), medians of 20
+   readings each, taken in turns, where it may take at most 1.1 times as
+   long (K4-bf16 at c128 and c256: ``K4_BF16_SLOWER``, the ratio
+   measured), and each K2-bf16 and K4-bf16 row's share of its bound; then
    ``InferenceServer(t128_config(), batch_size=2, dtype="bfloat16",
    device="cuda:0")``, the JAX server's default, answers
    phase 4's 9 captures on the same weights: volumes/s, p50 latency, each
@@ -188,7 +188,8 @@ SFORMER_LAUNCHES_PER_FORWARD = 16
 # Phase 3: a K1, K2, K5 or K8 call of the path may take this many times its
 # library call's time (``F.conv3d``, ``conv3d_input``, the autograd of
 # ``F.max_pool3d``), medians of LIBRARY_READINGS readings each, taken in
-# turns; phase 9 likewise for K1-bf16 and K4-bf16 (``F.conv3d`` in bf16)
+# turns; phase 9 likewise for K1-bf16, K2-bf16 and K4-bf16 (``F.conv3d`` in
+# bf16)
 CONV3P_SLOWER = 1.1
 LIBRARY_READINGS = 20
 # Phase 9, K4-bf16 against cuDNN's bf16 conv on the same tensors, by
@@ -1586,7 +1587,13 @@ def bf16_rows(dev):
             library_fn=lambda: F.conv3d(x_ncdhw, w, padding=3),
             moved=nbytes(x, k, scale, shift) + 2 * 64 * x.numel(),
             ops=[(2 * 343 * 64 * x.numel(), "bf16")], tag=tag, repeats=True,
-            bf16_ulp=True)
+            bf16_ulp=True, slower=CONV3P_SLOWER if count else None)
+        if count:
+            row["bound_share"] = row["bound_ms"] / row["ms_median"]
+            log(f"[{tag}] {row['shape']}: {row['bound_share']:.1%} of its "
+                f"bound ({row['bound_ms']:.4f} ms, {row['bound_by']}), "
+                f"{row['ms_median'] / row['library_ms_median']:.3f} x its "
+                "library call")
         f64_check(row, lambda: K.stem_conv_raw_bf16(
                       x, k, scale, shift, relu, out_dtype=torch.float32),
                   lambda: K.stem_conv_raw_ref(x.float(), k.float(), scale,
@@ -2192,6 +2199,19 @@ def phase_probes(dev):
     if counts != want or not all(r["ok"] for r in results):
         raise RuntimeError(f"probes failed: {results}; launches {counts}")
 
+    def launch_alone(row, entry, *args):
+        """The kernel's launch alone, into preallocated outputs (no wrapper
+        checks or allocation): the median and range of 20 readings of 50
+        launches, logged beside the row's time through the wrapper."""
+        reads = [cuda_ms(lambda: _build.launch(entry, *args), iters=50)
+                 for _ in range(20)]
+        row["launch_ms"] = float(np.median(reads))
+        row["launch_ms_range"] = [min(reads), max(reads)]
+        log(f"[8 probes] {row['shape']}: launch alone {row['launch_ms']:.4f}"
+            f" ms (median of 20, {min(reads):.4f}-{max(reads):.4f}), "
+            f"through the wrapper {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms")
+
     inp = diag.probe_inputs(dev)
     rows = {}
     x = inp["x_a"]
@@ -2201,6 +2221,8 @@ def phase_probes(dev):
                   tag="8 probes")
     row["per_run"] = 1
     rows["probe_im2col"] = [row]
+    patches = torch.empty_like(K.probe_im2col(x))
+    launch_alone(row, "hp_probe_im2col", x.data_ptr(), patches.data_ptr())
     xb = inp["x_b"]
     row = compare("probe_slice_transpose (512,128)->2x(64,512)",
                   lambda: K.probe_slice_transpose(xb),
@@ -2208,6 +2230,9 @@ def phase_probes(dev):
                   exact=True, moved=2 * nbytes(xb), tag="8 probes")
     row["per_run"] = 1
     rows["probe_slice_transpose"] = [row]
+    lo, hi = (torch.empty_like(t) for t in K.probe_slice_transpose(xb))
+    launch_alone(row, "hp_probe_slice_transpose", xb.data_ptr(),
+                 lo.data_ptr(), hi.data_ptr(), *xb.shape)
     rows["probe_dot_f32"] = []
     a = inp["a"]
     for b in (inp["b"], inp["b64"]):

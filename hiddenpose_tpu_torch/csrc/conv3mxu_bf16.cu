@@ -72,6 +72,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -88,56 +89,6 @@ constexpr int TAP_B = 2 * 16 * BN;        // bf16: a tap's two k-steps
 constexpr int B_STAGE = 9 * TAP_B;        // bf16: the stage's nine taps
 constexpr int B_ROWS = B_STAGE * 2 / 16;  // 16-byte rows of a stage's B
 constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) * 2 + 16 * STAGES;
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// The one arrival of a stage's mbarrier, which also expects `bytes` from
-// the copies into its slot.
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// A bulk copy of `bytes` (a multiple of 16) from global src to shared dst,
-// completing on the mbarrier.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// The tensor map's box at coordinates (c, w, h, plane) into shared dst,
-// completing on the mbarrier; the box's voxels outside the tensor read 0.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c, int w, int h, int plane,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h),
-      "r"(plane), "r"(bar)
-      : "memory");
-}
-
-// Waits until the phase of parity `parity` of the mbarrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity)
-      : "memory");
-}
 
 // A tile of the call: batch b, output plane d, the th x tw voxels at (h0,
 // w0), output channels 64 nb on; tiles are numbered W-tile fastest, then
@@ -211,7 +162,7 @@ conv3_bf16_kernel(const __grid_constant__ CUtensorMap x,
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, NT / 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -430,18 +381,6 @@ extern "C" int hp_conv3_mxu_bf16_prep(const void* k, void* wp, int cin,
   return (int)cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, through the runtime (no link to libcuda),
-// looked up once per library.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-namespace {
-EncodeTiled encode_tiled = nullptr;
-}
-
 // x (B, D, H, W, C_in) bf16; k (3, 3, 3, C_in, C_out) bf16 (with
 // transposed: (3, 3, 3, C_out, C_in), the forward weights of a dx), which
 // the call lays out into wp (as hp_conv3_mxu_bf16_prep) before the conv;
@@ -462,16 +401,7 @@ extern "C" int hp_conv3_mxu_bf16_fwd(const void* x, const void* k, void* wp,
     return (int)cudaErrorInvalidValue;
   int err = hp_conv3_mxu_bf16_prep(k, wp, cin, cout, transposed, stream);
   if (err) return err;
-  if (encode_tiled == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    if ((err = (int)cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                            cudaEnableDefault, &found)))
-      return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorNotSupported;
-    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
-  }
+  if ((err = find_encode_tiled())) return err;
   // x as (C_in, W, H, B D): a box of 32 channels x (tw + 2) x (th + 2) x 1
   // plane lands in shared memory as the halo [hy][wx][32] of one stage
   CUtensorMap map;

@@ -35,7 +35,7 @@ SOURCES = ("conv3p.cu", "stem_conv.cu", "phase_pool.cu", "conv3mxu.cu",
            "stem_conv_bf16.cu")
 # headers the sources include: hashed with them, so an edit to one rebuilds
 HEADERS = ("cp_async.cuh", "conv3p_tile.cuh", "wgmma_tf32.cuh",
-           "wgmma_bf16.cuh", "bf16.cuh")
+           "wgmma_bf16.cuh", "bf16.cuh", "mbarrier.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -28,9 +28,11 @@ raises when an input requires grad and grad mode is on.
 :func:`stem_conv_raw_bf16` is the stem of the bfloat16 model, the JAX
 kernel's arithmetic on bf16 operands (one bf16 MXU pass, f32 sums, the
 affine and ReLU in f32, the result in bf16): its own kernel,
-``csrc/stem_conv_bf16.cu``, one bf16 ``wgmma`` pass with f32 sums.  Its
-bookkeeping is written out in plain PyTorch too
-(:func:`prepare_weights_bf16_ref`, :func:`stem_conv_bf16_tiled_ref`).
+``csrc/stem_conv_bf16.cu``, one bf16 ``wgmma`` pass with f32 sums, the
+channels as M and the voxels as N.  Its bookkeeping is written out in plain
+PyTorch too (:func:`prepare_weights_bf16_ref`,
+:func:`expanded_planes_bf16`, :func:`b_offsets_stem_bf16`,
+:func:`stem_conv_bf16_tiled_ref`).
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ import torch.nn.functional as F
 
 from hiddenpose_tpu_torch.ops.kernels import _build
 from hiddenpose_tpu_torch.ops.kernels._tf32 import tf32_split
-from hiddenpose_tpu_torch.ops.kernels.conv3mxu import (
-    b_offsets_bf16, column_channels_bf16)
 
 COUT = 64
 # The kernel's block tile: two warpgroups, each an 8 x 8 patch of output
@@ -225,26 +225,39 @@ stem_conv_raw.launches = 0
 
 
 # ------------------------------------------------------------------- bf16
-# The bf16 kernel (csrc/stem_conv_bf16.cu) multiplies in one bf16 pass,
-# wgmma m64n64k16: a k-step is 16 taps, two (kd, kh) rows of kw 0..7, so
-# kh is padded from 7 to 8 as kw is (k-steps (kh 0, 1), (2, 3), (4, 5),
-# (6, 7) of each kd: 28 a voxel where 24.5 would do, 14% more products
-# than the f32 kernel's 49 rows of 8).  k slot 8 kh_sub + kw of k-step j is
-# tap (kh 2j + kh_sub, kw); the weights of kh 7 and kw 7 are 0.  B and the
-# columns are laid out as K4-bf16's (``conv3mxu.b_offsets_bf16``,
-# ``conv3mxu.column_channels_bf16``): a lane's accumulators of four n-tiles
-# are 8 consecutive channels, one 16-byte store of bf16.
+# The bf16 kernel (csrc/stem_conv_bf16.cu) swaps the roles of K2's GEMM: M
+# is the 64 output channels (the weights, resident in shared memory), N is
+# 128 voxels of an output plane (8 H rows x 16 W columns, one warpgroup's
+# half of a 16 x 16 block tile), K is the taps, on wgmma m64n128k16 with
+# both operands read from shared memory by descriptor.  A k-step is 16
+# taps: rows 2j and 2j + 1 of the 49 (kd, kh) rows (row r = 7 kd + kh; row
+# 49 is zero weights), kw 0..7 in each (kw 7 zero), so 25 k-steps where
+# 24.5 would do.  The voxels' operand is the *expanded* halo plane: for
+# each halo row and output column the 16 bytes of the 8 inputs its kw taps
+# read, x[.., w - 3 + kw] for kw 0..7, so an MMA reads its B (16 k x 128 n,
+# K-major) as core matrices of 8 voxels x 8 kw: row r0 of the k-step at
+# the descriptor's start, row r1 LBO bytes on (one expanded row, or, where
+# the k-step straddles two kd, the distance to the next plane's slot: the
+# ring of plane slots is mirrored so that the seven planes of an output
+# plane lie at consecutive slots).  The accumulator's rows are the
+# channels in order; the epilogue transposes it through shared memory.
+BF16_TH, BF16_TW = 16, 16       # the block tile: two warpgroups of 8 x 16
+BF16_KSTEPS = 25
+BF16_STAGES = 2                 # f32 partials a plane: k-steps 0..12, 13..24
+BF16_ROWS = BF16_TH + 7         # expanded rows of a plane slot (last: zero)
+BF16_ROW = BF16_TW * 8          # bf16 of an expanded row
+BF16_SLOT = BF16_ROWS * BF16_ROW  # bf16 of a plane slot
+
 
 def prepare_weights_bf16_ref(kernel):
     """Plain version of :func:`prepare_weights_bf16`: the (7, 7, 7, 1, 64)
-    DHWIO bf16 kernel, kh and kw padded to 8, laid out as (7 kd, 4 k-steps,
-    2 core matrices along k (kh_sub), 8 along n, 8 rows, 8 kw) bf16."""
-    w = F.pad(kernel.reshape(7, 7, 7, COUT), (0, 0, 0, 1, 0, 1))
-    # (kd, j, kh_sub, kw, p, r / 2, q, r % 2)
-    w = w.reshape(7, 4, 2, 8, 2, 4, 4, 2)
-    # -> (kd, j, kh_sub, p, q, r / 2, r % 2, kw)
-    w = w.permute(0, 1, 2, 4, 6, 5, 7, 3)
-    return w.reshape(7, 4, 2, 8, 8, 8).contiguous()
+    DHWIO bf16 kernel as the MMA's A operand, (25 k-steps, 2 halves along
+    k, 8 core matrices along the channels, 8 channels, 8 kw) bf16: element
+    (j, half, g, r, kw) is tap (kd, kh) = divmod(2j + half, 7), kw, of
+    channel 8g + r; row 49 and kw 7 are zero."""
+    w = F.pad(kernel.reshape(49, 7, COUT), (0, 0, 0, 1, 0, 1))  # (50, 8, 64)
+    w = w.reshape(BF16_KSTEPS, 2, 8, 8, 8)  # (j, half, kw, g, r)
+    return w.permute(0, 1, 3, 4, 2).contiguous()
 
 
 def prepare_weights_bf16(kernel):
@@ -256,82 +269,105 @@ def prepare_weights_bf16(kernel):
     if kernel.device.type != "cuda":
         raise ValueError(f"prepare_weights_bf16: unsupported device "
                          f"{kernel.device}")
-    wp = torch.empty((7, 4, 2, 8, 8, 8), device=kernel.device,
+    wp = torch.empty((BF16_KSTEPS, 2, 8, 8, 8), device=kernel.device,
                      dtype=torch.bfloat16)
     _build.launch("hp_stem_conv_bf16_prep", kernel.data_ptr(), wp.data_ptr(),
                   device=kernel.device)
     return wp
 
 
-def operand_b_bf16(wp):
-    """B of each (kd, k-step) as the MMA reads it through its descriptor:
-    (7, 4, 16 k, 64 columns)."""
-    return wp.reshape(7, 4, 1024)[..., b_offsets_bf16()]
+def operand_a_bf16(wp):
+    """A of each k-step as the MMA reads it through its descriptor (K-major,
+    1024 bytes between the halves along k, 128 between the core matrices
+    along the channels): (25, 64 channels, 16 k)."""
+    m = torch.arange(COUT)[:, None]
+    k = torch.arange(16)[None, :]
+    off = k % 8 + 8 * (m % 8) + 512 * (k // 8) + 64 * (m // 8)
+    return wp.reshape(BF16_KSTEPS, 1024)[:, off]
+
+
+def b_row_offsets_bf16():
+    """(start, lbo) of each warpgroup's B descriptor for each k-step, in
+    bf16 from the slot of the output plane's first input plane (kd 0): row
+    (kd, kh) of warpgroup wg is slot kd, expanded row 8 wg + kh; row 49,
+    the zero weights', reads expanded row 8 wg + 7 of slot 6 (the slot's
+    zero row for warpgroup 1).  Two (2, 25) long tensors."""
+    rows = [divmod(r, 7) for r in range(49)] + [(6, 7)]
+    start = torch.empty((2, BF16_KSTEPS), dtype=torch.long)
+    lbo = torch.empty((2, BF16_KSTEPS), dtype=torch.long)
+    for wg in range(2):
+        off = [kd * BF16_SLOT + (8 * wg + kh) * BF16_ROW for kd, kh in rows]
+        for j in range(BF16_KSTEPS):
+            start[wg, j] = off[2 * j]
+            lbo[wg, j] = off[2 * j + 1] - off[2 * j]
+    assert (lbo > 0).all()  # a descriptor's offsets are unsigned
+    return start, lbo
 
 
 @functools.lru_cache(maxsize=1)
-def a_gather_bf16():
-    """Where the bf16 kernel's lanes load A from: for each warpgroup, k-step
-    j of a kd, row m and k slot of the MMA's A (64 x 16), the (hy, wx) of
-    the halo plane (hy 0..14: the tile's rows from -3 on and a row of
-    zeros; wx 0..22: its columns from -3 on, the last zeros), as (2, 4,
-    64, 16) each.  The halo holds 32-bit words of two neighbours along W,
-    (v(hy, c), v(hy, c + 1)); lane (g, t) of warp w loads the words of rows
-    2w .. 2w + 8 at column c = 8 wg + g + 2t and hands k-step j the A
-    fragment {row 2w + 2j, 2w + 2j + 1, 2w + 2j + 1, 2w + 2j + 2}: register
-    0 is (row 16w + g, k 2t, 2t + 1), 1 (16w + g + 8, 2t..), 2 (16w + g,
-    2t + 8..), 3 (16w + g + 8, 2t + 8..); the low half of a word is the
-    lower k."""
-    hy = torch.full((2, 4, 64, 16), -1, dtype=torch.long)
-    wx = torch.full((2, 4, 64, 16), -1, dtype=torch.long)
-    for wg in range(2):
-        for j in range(4):
-            for w in range(4):
-                for g in range(8):
-                    for t in range(4):
-                        for reg in range(4):
-                            row = 2 * w + 2 * j + (0, 1, 1, 2)[reg]
-                            m = 16 * w + g + 8 * (reg % 2)
-                            for half in range(2):
-                                k = 2 * t + half + 8 * (reg // 2)
-                                hy[wg, j, m, k] = row
-                                wx[wg, j, m, k] = 8 * wg + g + 2 * t + half
-    assert (hy >= 0).all() and (wx >= 0).all()  # every (m, k) loaded once
-    return hy, wx
+def b_offsets_stem_bf16():
+    """(2 warpgroups, 25 k-steps, 16 k, 128 n): the bf16 of the seven
+    consecutive plane slots that the MMA's B descriptor reads as (k, n),
+    element (k % 8) + 8 (n % 8) + lbo (k / 8) + 64 (n / 8) from the
+    k-step's start (16-byte rows of one voxel's 8 kw, 128 bytes between
+    the core matrices of 8 voxels): voxel n is (H row n / 16, W column n %
+    16) of the warpgroup's 8 x 16."""
+    start, lbo = b_row_offsets_bf16()
+    k = torch.arange(16)[:, None]
+    n = torch.arange(128)[None, :]
+    return (start[..., None, None] + k % 8 + 8 * (n % 8)
+            + lbo[..., None, None] * (k // 8) + 64 * (n // 8))
+
+
+def expanded_planes_bf16(x):
+    """The kernel's plane slots for every (batch, input plane, block tile):
+    (B, D + 6, tiles_h, tiles_w, 23 rows, 16 columns, 8 kw) in x's dtype,
+    slot (b, p) holding input plane p - 3; its (row, w, kw) is x[h0 - 3 +
+    row, w0 - 3 + w + kw] of the tile at (h0, w0), zero outside the volume
+    and in row 22."""
+    b, d, h, w, _ = x.shape
+    th, tw = -(-h // BF16_TH), -(-w // BF16_TW)
+    pad = (3, BF16_TW * tw + 4 - w, 3, BF16_TH * th + 3 - h, 3, 3)
+    xp = F.pad(x[..., 0], pad)
+    rows = (torch.arange(th) * BF16_TH)[:, None] + torch.arange(BF16_ROWS - 1)
+    cols = ((torch.arange(tw) * BF16_TW)[:, None, None]
+            + torch.arange(BF16_TW)[:, None] + torch.arange(8))
+    e = xp[:, :, rows][..., cols]  # (b, d + 6, th, 22, tw, 16, 8)
+    e = F.pad(e.permute(0, 1, 2, 4, 3, 5, 6), (0, 0, 0, 0, 0, 1))
+    return e.contiguous()
 
 
 def stem_conv_bf16_tiled_ref(x, kernel, scale, shift, relu=True,
                              out_dtype=torch.bfloat16):
-    """The bf16 kernel's bookkeeping in plain PyTorch: the block tiles of
-    each plane, the halo with its zero row and column, each warpgroup's A
-    gathered as its lanes load it (:func:`a_gather_bf16`), the B operands
-    of :func:`prepare_weights_bf16_ref` read back through the descriptor,
-    the four k-steps of a kd summed (f32 matrix products of bf16 values),
-    the seven kd partials added in order, the columns put back in channel
-    order, then the affine and ReLU in f32 and one rounding to
-    ``out_dtype``.  Same arguments and result as :func:`stem_conv_raw_ref`
-    on bf16 operands."""
+    """The bf16 kernel's bookkeeping in plain PyTorch: the expanded plane
+    slots of each block tile (:func:`expanded_planes_bf16`), the seven of an
+    output plane side by side as the mirrored ring holds them, each
+    warpgroup's B read through its descriptors
+    (:func:`b_offsets_stem_bf16`), A through its own
+    (:func:`operand_a_bf16` of :func:`prepare_weights_bf16_ref`), the
+    k-steps of each stage (13, then 12) summed into an f32 partial (f32
+    matrix products of bf16 values), the partials added in order, the voxels put back in place,
+    then the affine and ReLU in f32 and one rounding to ``out_dtype``.
+    Same arguments and result as :func:`stem_conv_raw_ref` on bf16
+    operands."""
     b, d, h, w, _ = x.shape
-    th, tw = -(-h // TILE_H), -(-w // TILE_W)
-    pad = (3, 3 + tw * TILE_W - w + 1, 3, 3 + th * TILE_H - h + 1, 3, 3)
-    halo = F.pad(x[..., 0].float(), pad)
-    bmat = operand_b_bf16(prepare_weights_bf16_ref(kernel)).float()
-    hy, wx = a_gather_bf16()
-    ti = (torch.arange(th) * TILE_H).view(th, 1, 1, 1, 1, 1)
-    tj = (torch.arange(tw) * TILE_W).view(tw, 1, 1, 1, 1)
-    iy, ix = ti + hy, tj + wx
-    ib = torch.arange(b).view(b, 1, 1, 1, 1, 1, 1, 1)
+    e = expanded_planes_bf16(x).float()
+    th, tw = e.shape[2], e.shape[3]
+    e = e.reshape(b, d + 6, th, tw, BF16_SLOT)
+    ring = torch.stack([e[:, kd:kd + d] for kd in range(7)], dim=4)
+    ring = ring.reshape(b, d, th, tw, 7 * BF16_SLOT)
+    bmat = ring[..., b_offsets_stem_bf16()]  # (b, d, th, tw, 2, 25, 16, 128)
+    amat = operand_a_bf16(prepare_weights_bf16_ref(kernel)).float()
     acc = 0.0
-    for kd in range(7):
-        iz = (torch.arange(d) + kd).view(d, 1, 1, 1, 1, 1, 1)
-        a = halo[ib, iz, iy, ix]  # (b, d, th, tw, wg, j, m, k)
-        am = a.permute(0, 1, 2, 3, 4, 6, 5, 7).flatten(-2)
-        acc = acc + am @ bmat[kd].reshape(64, 64)
-    y = torch.empty_like(acc)
-    y[..., column_channels_bf16()] = acc
-    y = y.view(b, d, th, tw, 2, 4, 2, 8, COUT)
-    y = y.permute(0, 1, 2, 5, 6, 3, 4, 7, 8)
-    y = y.reshape(b, d, th * TILE_H, tw * TILE_W, COUT)[:, :, :h, :w]
+    for s in range(BF16_STAGES):
+        js = slice(*(-(-t * BF16_KSTEPS // BF16_STAGES) for t in (s, s + 1)))
+        a = amat[js].permute(1, 0, 2).reshape(COUT, -1)  # (64, 16 k-steps)
+        bs = bmat[..., js, :, :].flatten(-3, -2)         # (.., 16 k-steps, 128)
+        acc = acc + a @ bs                               # (.., wg, 64, 128)
+    # (b, d, th, tw, wg, c, row, col) -> (b, d, th, wg, row, tw, col, c)
+    y = acc.view(b, d, th, tw, 2, COUT, 8, BF16_TW)
+    y = y.permute(0, 1, 2, 4, 6, 3, 7, 5)
+    y = y.reshape(b, d, th * BF16_TH, tw * BF16_TW, COUT)[:, :, :h, :w]
     y = y * scale + shift
     if relu:
         y = torch.clamp_min(y, 0.0)

@@ -1,8 +1,8 @@
-"""Time K4-bf16 (``conv3_mxu_bf16``, the bf16 Bottleneck conv) and K1-bf16
-(``conv3_planes_bf16``, the bf16 FeatureExtraction / UNet conv) of one or
-more checkouts of the port on one GPU, each checkout in a process of its
-own, in the order given, at the t128 batch-2 shapes of the bf16 serving
-path.
+"""Time K4-bf16 (``conv3_mxu_bf16``, the bf16 Bottleneck conv), K1-bf16
+(``conv3_planes_bf16``, the bf16 FeatureExtraction / UNet conv) and K2-bf16
+(``stem_conv_raw_bf16``, the bf16 stem conv) of one or more checkouts of
+the port on one GPU, each checkout in a process of its own, in the order
+given, at the t128 batch-2 shapes of the bf16 serving path.
 
     python3 scripts/torch_bf16_conv_ab.py ROOT [ROOT ...]
 
@@ -16,9 +16,11 @@ kernel's ms and that of its library call (``F.conv3d`` on the same bf16
 tensors, channels-last for K4, on a padded copy for K1), medians of 20
 readings of a few launches each, kernel and library in turns, and for K1
 the f32 kernel's ms on the same values; the sums over one forward's calls
-(11 and 24); each kernel's largest excess over one bf16 ulp of its plain
+(11 and 24); K2-bf16 at (2, 128^3) beside ``F.conv3d`` on the same bf16
+tensors; each kernel's largest excess over one bf16 ulp of its plain
 version (at most 0 passes), whether two calls agree bit for bit, and
-K4-bf16's f32-output error against float64 beside the library f32 conv's.
+K4-bf16's and K2-bf16's f32-output error against float64 beside the
+library f32 conv's.
 Exits non-zero when a kernel disagrees or a run fails.
 """
 
@@ -124,6 +126,37 @@ def one(root: str) -> dict:
                                    for r in res["conv3_mxu_bf16"])
     res["conv3_mxu_bf16_library_ms"] = sum(
         r["library_ms"] * r["calls"] for r in res["conv3_mxu_bf16"])
+
+    # K2-bf16: the stem of the serving forward, (2, 128^3), its BN + ReLU
+    n = 128
+    x = torch.rand((B, n, n, n, 1), generator=g, device=dev).to(bf16)
+    k = randn(7, 7, 7, 1, 64, scale=343 ** -0.5).to(bf16)
+    sc = torch.rand(64, generator=g, device=dev) + 0.5
+    sh = randn(64, scale=0.1)
+    got = K.stem_conv_raw_bf16(x, k, sc, sh)
+    row = dict(shape=[B, n, n, n, 1], calls=1,
+               ulp_excess=excess(got, K.stem_conv_raw_ref(x, k, sc, sh)),
+               repeats=bool(torch.equal(got, K.stem_conv_raw_bf16(x, k, sc,
+                                                                  sh))))
+    x_ncdhw = x.permute(0, 4, 1, 2, 3)
+    w = k.permute(4, 3, 0, 1, 2).contiguous()
+    want64 = F.conv3d(x_ncdhw.double(), w.double(), padding=3)
+    want64 = (want64.permute(0, 2, 3, 4, 1) * sc.double()
+              + sh.double()).clamp_min(0.0)
+    f32 = K.stem_conv_raw_bf16(x, k, sc, sh, out_dtype=torch.float32)
+    lib32 = K.stem_conv_raw_ref(x.float(), k.float(), sc, sh)
+    row["err_vs_f64"] = (f32.double() - want64).abs().max().item()
+    row["library_f32_err_vs_f64"] = (lib32.double() - want64).abs().max().item()
+    del want64, f32, lib32, got
+    row["ms"], row["library_ms"] = medians(
+        [lambda: K.stem_conv_raw_bf16(x, k, sc, sh),
+         lambda: F.conv3d(x_ncdhw, w, padding=3)], iters=5)
+    row["ratio"] = row["ms"] / row["library_ms"]
+    res["ok"] &= (row["ulp_excess"] <= 0.0 and row["repeats"]
+                  and row["err_vs_f64"] <= 2 * row["library_f32_err_vs_f64"])
+    res["stem_conv_raw_bf16"] = row
+    del x, x_ncdhw
+    torch.cuda.empty_cache()
 
     res["conv3_planes_bf16"] = []
     for cin, cout, n, pad, act, resid, count, _, _ in K1_SHAPES:

@@ -72,7 +72,7 @@ from hiddenpose_tpu_torch.models.blocks import FeatureExtraction
 from hiddenpose_tpu_torch.models.nlospose import NlosPose, build_nlospose
 from hiddenpose_tpu_torch.models.posenet3d import Bottleneck
 from hiddenpose_tpu_torch.ops import kernels as K
-from hiddenpose_tpu_torch.ops.kernels import conv3mxu, conv3p
+from hiddenpose_tpu_torch.ops.kernels import conv3mxu, conv3p, stem_conv
 from hiddenpose_tpu_torch.serve import InferenceServer
 from hiddenpose_tpu_torch.train.step import make_forward, make_train_step
 from hiddenpose_tpu_torch.utils.jax_bridge import state_dict_from_jax
@@ -294,6 +294,83 @@ def test_k2_bf16_plain_matches_jax(relu):
         torch.from_numpy(x).bfloat16(), torch.from_numpy(k).bfloat16(),
         torch.from_numpy(scale), torch.from_numpy(shift), relu=relu)
     _one_ulp(got, want)
+
+
+@pytest.mark.parametrize("shape,relu", [((1, 16, 16, 16), True),
+                                        ((1, 16, 16, 16), False),
+                                        ((1, 8, 24, 18), True)])
+def test_k2_bf16_tiled_ref_matches_jax(shape, relu):
+    """The bf16 kernel's bookkeeping (``stem_conv_bf16_tiled_ref``: its
+    expanded plane slots, the mirrored ring, both operands read through
+    their descriptors, the two f32 partials a plane) against
+    ``stem_conv_raw_pallas`` on the same bf16 operands, within one bf16
+    ulp; the (8, 24, 18) volume leaves the 16 x 16 block tiles ragged in H
+    and W (the JAX kernel takes D and H in multiples of 8)."""
+    rng = np.random.RandomState(4)
+    x = _bf16_values(rng.rand(*shape, 1))
+    k = _rb(rng, (7, 7, 7, 1, 64), 343 ** -0.5)
+    scale = (rng.rand(64) + 0.5).astype(np.float32)
+    shift = (rng.randn(64) * 0.1).astype(np.float32)
+    want = stem_conv_raw_pallas(
+        jnp.asarray(x, BF16), make_s2d_kernel(jnp.asarray(k, BF16)),
+        jnp.tile(jnp.asarray(scale), 8), jnp.tile(jnp.asarray(shift), 8),
+        relu=relu)
+    want = np.asarray(depth_to_space_3d(want).astype(jnp.float32))
+    got = stem_conv.stem_conv_bf16_tiled_ref(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(k).bfloat16(),
+        torch.from_numpy(scale), torch.from_numpy(shift), relu=relu)
+    assert got.dtype == torch.bfloat16
+    _one_ulp(got, want)
+
+
+def test_k2_bf16_weight_layout():
+    """Read through the MMA's A descriptor offsets, every tap of the 7^3
+    kernel sits in the prepared weights exactly once, at the k-step, half
+    and kw that its (kd, kh) row and kw say, and every padded slot (row 49,
+    kw 7) is zero."""
+    k = torch.arange(1, 343 * 64 + 1, dtype=torch.float64).reshape(
+        7, 7, 7, 1, 64)
+    a = stem_conv.operand_a_bf16(stem_conv.prepare_weights_bf16_ref(k))
+    assert a.shape == (25, 64, 16)
+    j = torch.arange(25).view(25, 1, 1)
+    c = torch.arange(64).view(1, 64, 1)
+    kk = torch.arange(16).view(1, 1, 16)
+    row, kw = (2 * j + kk // 8).expand_as(a), (kk % 8).expand_as(a)
+    real = (row < 49) & (kw < 7)
+    want = k.reshape(49, 7, 64)[row.clamp(max=48), kw.clamp(max=6),
+                                c.expand_as(a)]
+    assert torch.equal(a[real], want[real])
+    assert (a[~real] == 0).all()
+    assert torch.equal(a[real].sort().values, k.flatten())
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 20, 18), (2, 2, 7, 5)])
+def test_k2_bf16_b_operand(shape):
+    """Each k slot of each warpgroup's B, read through the descriptor
+    offsets from the seven plane slots of an output plane, is the input
+    voxel that the slot's tap reads for the column's voxel (zero outside
+    the volume): the expanded rows, the straddling k-steps' LBO and the
+    warpgroups' row offsets together."""
+    b, d, h, w = shape
+    x = torch.arange(1, b * d * h * w + 1, dtype=torch.float64).reshape(
+        b, d, h, w, 1)
+    e = stem_conv.expanded_planes_bf16(x)
+    th, tw = e.shape[2], e.shape[3]
+    e = e.reshape(b, d + 6, th, tw, -1)
+    ring = torch.stack([e[:, kd:kd + d] for kd in range(7)], 4).flatten(4)
+    got = ring[..., stem_conv.b_offsets_stem_bf16()]
+    # (b, d, th, tw, wg, j, k, n): the padded input index is the input's + 3
+    xp = F.pad(x[..., 0], (3, 16 * tw + 3 - w, 3, 16 * th + 3 - h, 3, 3))
+    v = lambda n, at: torch.arange(n).view(*([1] * at), n, *([1] * (7 - at)))
+    ib, iz, it, iu = v(b, 0), v(d, 1), v(th, 2), v(tw, 3)
+    wg, j, kk, n = v(2, 4), v(25, 5), v(16, 6), v(128, 7)
+    row, kw = 2 * j + kk // 8, kk % 8
+    kd, kh = row // 7, row % 7
+    real = ((row < 49) & (kw < 7)).expand_as(got)
+    want = xp[ib, iz + kd.clamp(max=6),
+              16 * it + 8 * wg + n // 16 + kh,
+              16 * iu + n % 16 + kw.clamp(max=6)]
+    assert torch.equal(got[real], want.expand_as(got)[real])
 
 
 @pytest.mark.parametrize("cin,cout,act,residual,pad_mode", [

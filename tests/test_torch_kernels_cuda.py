@@ -988,7 +988,8 @@ def test_stem_conv_bf16(dev, shape, relu):
 
 
 def test_stem_conv_bf16_against_float64(dev):
-    """The f32-output form, one bf16 pass with f32 sums a kd at a time:
+    """The f32-output form, one bf16 pass with f32 sums, two partials a
+    plane:
     at most twice the library f32 conv's error against float64; the
     weight operand bit for bit the plain version's."""
     from hiddenpose_tpu_torch.ops.kernels import stem_conv
@@ -1008,6 +1009,30 @@ def test_stem_conv_bf16_against_float64(dev):
     assert err <= 2 * err_plain, (err, err_plain)
     assert torch.equal(stem_conv.prepare_weights_bf16(k),
                        stem_conv.prepare_weights_bf16_ref(k))
+
+
+@pytest.mark.parametrize("shape", [(1, 12, 20, 36), (1, 5, 6, 7),
+                                   (2, 9, 17, 33), (1, 70, 16, 16)])
+def test_stem_conv_bf16_matches_its_tiled_ref(dev, shape):
+    """The f32-output form against the kernel's bookkeeping in plain
+    PyTorch (``stem_conv_bf16_tiled_ref``: its expanded plane slots, the
+    mirrored ring, both descriptors, the two partials a plane) on ragged
+    tiles and across two work units along D: the f32 sums' order alone
+    (the tensor core truncates inside a partial where the CPU rounds, so
+    the two agree to 1e-5 of the largest output, not bit for bit)."""
+    from hiddenpose_tpu_torch.ops.kernels import stem_conv
+
+    rng = np.random.RandomState(30)
+    x, k, scale, shift = _stem_inputs(rng, shape, dev)
+    x = x.to(torch.bfloat16)
+    k = (k / 0.05 * 343 ** -0.5).to(torch.bfloat16)
+    got = K.stem_conv_raw_bf16(x, k, scale, shift, False,
+                               out_dtype=torch.float32)
+    want = stem_conv.stem_conv_bf16_tiled_ref(
+        x.cpu(), k.cpu(), scale.cpu(), shift.cpu(), relu=False,
+        out_dtype=torch.float32)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
 
 
 # Each of the kernel's tiles (conv3mxu.bf16_tile): 16 x 16 (W 9-16, the
