@@ -75,7 +75,28 @@ lines:
    capture served in a batch; last, the same server at batch 8 (the JAX
    server's default batch) answers 16 requests, two full batches: its
    volumes/s, p50, launch counts, and its joints against the batch-2
-   server's.
+   server's;
+10. train precision: K4-dx-bf16's rows, then the train step at the JAX
+   package's default precision ('default'), at 'high' and in bfloat16
+   (see ``phase_train_precision``);
+11. train loop: (a) ``train()`` at t128 'default' from the peaked weights,
+   two epochs of two steps over ``SyntheticSource(length=8)`` with 4
+   loader worker processes, ``log_every=1``, ``ckpt_every_iters=3``: every
+   loss finite, 4 'Train Loss' records, checkpoints iter_3, epoch_0 and
+   epoch_1, each loop kernel launched 4 x its 'default' per-step count;
+   the loop's ms a step beside phase 10's bare step, the loader wait, each
+   checkpoint's save ms and size; (b) epoch_1 restored into a fresh state
+   equals the live state bit for bit (and epoch_0 its file), and a resume
+   from epoch_0 under deterministic algorithms repeats (a)'s first loss of
+   epoch 1 within TRAIN_LOSS_TOL; (c) one step with (a)'s autoencoder
+   loaded and frozen: its tensors bit-identical and without optimizer
+   state, every other tensor moved; (d) ``evaluate()`` over 4 captures:
+   finite MPJPE / PA-MPJPE / PCK, joints within BATCH_TOL of
+   ``make_forward``, volumes/s; (e) ``python -m
+   hiddenpose_tpu_torch.cli.train`` then ``.cli.test`` as processes of
+   their own: exit 0, the test restoring epoch_0 and printing an MPJPE.
+   ``python3 chip_smoke.py --loop`` runs phases 1, 2 and 11 alone (phase
+   11 then times its own bare steps).
 
 Phase 3 also times, beside each kernel, the one PyTorch call that computes
 the same function where there is one (``library_ms``: a yardstick, used
@@ -93,6 +114,11 @@ version).  Every timed run keeps the libraries' default algorithms.
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 last line ``{"ok": true, "device": {...}}``.  Detailed per-shape results
 go to ``chiprun_out/chip_smoke.json``.  Imports no JAX.
+
+At its end, passed or failed, the script stops the data loader's fork
+server and resource tracker and kills whatever child is left, the
+processes of a command's loader included (it is their subreaper), so no
+process it started outlives it.
 """
 
 from __future__ import annotations
@@ -100,6 +126,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -298,6 +325,46 @@ def deterministic(warn_only: bool = False):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def adopt_orphans() -> None:
+    """Make this process the parent of every process its descendants leave
+    behind (Linux's child subreaper), so that :func:`stop_children` finds
+    them: a command's loader workers, say, if the command ends first."""
+    import ctypes
+
+    PR_SET_CHILD_SUBREAPER = 36
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1,
+                                                0, 0, 0)
+
+
+def stop_children() -> list:
+    """Stop every process this one started that is still running: the data
+    loader's fork server and resource tracker (stopped and waited for),
+    then any other child, adopted orphans included (killed and reaped).
+    Returns the killed pids."""
+    from hiddenpose_tpu_torch.data.dataset import stop_worker_server
+
+    stop_worker_server()
+    me, killed = str(os.getpid()), []
+    for _ in range(10):  # a killed child's own children are adopted next
+        found = []
+        for stat in Path("/proc").glob("[0-9]*/stat"):
+            try:  # "pid (comm) state ppid ...": comm may hold spaces
+                ppid = stat.read_text().rsplit(")", 1)[1].split()[1]
+            except (OSError, IndexError):
+                continue
+            if ppid == me:
+                found.append(int(stat.parent.name))
+        if not found:
+            break
+        for pid in found:
+            with contextlib.suppress(ProcessLookupError, ChildProcessError):
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+            killed.append(pid)
+    return killed
 
 
 def smi_line() -> str:
@@ -2282,6 +2349,329 @@ def phase_probes(dev):
     return rows, counts, results
 
 
+# Phase 11: the train loop, its checkpoints, the frozen autoencoder, the
+# evaluation harness and the two commands, at t128 on the card.
+LOOP_STEPS = 4          # (a): 2 epochs x 2 steps
+LOOP_SECONDS = 300      # each command's time limit
+
+
+def _loop_losses(log_dir, tag="Train Loss"):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return {r["step"]: r["value"] for r in recs if r["tag"] == tag}
+
+
+def _state_diff(a, b):
+    """The names where two TrainStates differ (model state_dict, optimizer
+    state and param groups, step); [] when bit for bit equal."""
+    bad = []
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    bad += [k for k in sa if not torch.equal(sa[k], sb[k].to(sa[k].device))]
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if oa["param_groups"] != ob["param_groups"]:
+        bad.append("param_groups")
+    if oa["state"].keys() != ob["state"].keys():
+        bad.append("optimizer state keys")
+    else:
+        bad += [f"optimizer {i} {k}" for i in oa["state"]
+                for k in ("step", "exp_avg", "exp_avg_sq")
+                if not torch.equal(oa["state"][i][k],
+                                   ob["state"][i][k].to(
+                                       oa["state"][i][k].device))]
+    if a.step != b.step:
+        bad.append("step")
+    return bad
+
+
+def _bare_default_steps(dev, cfg, weights, batch):
+    """Three bare 'default' steps (what phase 10 times), for a run of
+    phase 11 alone: ms of each by CUDA events."""
+    from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
+
+    model, lct = build_nlospose(cfg.model, device=dev)
+    model.load_state_dict(weights)
+    step = make_train_step(model, matmul_precision="default")
+    state = TrainState.create(model, cfg.train)
+    ms = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch, lct)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def phase_train_loop(dev, smi, bare_steps=None):
+    """(a) ``train()`` at t128 'default' from the peaked weights, 2 epochs of
+    2 steps, 4 loader workers; (b) a restored state against the live one
+    and a resume from epoch_0; (c) one step with the pretrained, frozen
+    autoencoder of (a); (d) ``evaluate()`` against ``make_forward``; (e)
+    ``cli.train`` then ``cli.test`` as commands."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from hiddenpose_tpu_torch.config import t128_config
+    from hiddenpose_tpu_torch.data.dataset import DataPipeline, SyntheticSource
+    from hiddenpose_tpu_torch.data.device_prefetch import device_prefetch
+    from hiddenpose_tpu_torch.eval.harness import evaluate
+    from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.ops.lct import make_lct_params
+    from hiddenpose_tpu_torch.train import checkpoint as ckpt
+    from hiddenpose_tpu_torch.train.loop import train
+    from hiddenpose_tpu_torch.train.pretrain import save_autoencoder
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_eval_step, make_forward
+
+    tag = "11 train loop"
+    base = t128_config()
+    m = base.model
+    weights = t128_weights(base)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    out = {}
+    try:
+        if bare_steps is None:
+            from hiddenpose_tpu_torch.data.synthetic import make_batch
+
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+                [0, 1], m.time_size, m.image_size[0], m.grid_dim,
+                m.heatmap_size[0], m.bin_len).items()}
+            bare_steps = _bare_default_steps(dev, base, weights, batch)
+            del batch
+            torch.cuda.empty_cache()
+        bare = float(np.median(bare_steps[1:]))
+
+        # (a) the loop
+        cfg = dataclasses.replace(
+            base, num_workers=4, log_dir=str(tmp / "log_a"),
+            train=dataclasses.replace(base.train, end_epoch=2))
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train(cfg, source=SyntheticSource(cfg, length=8),
+                    workdir=str(tmp / "ck_a"), log_every=1,
+                    ckpt_every_iters=3, max_steps_per_epoch=2,
+                    weights=weights, device=dev)
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = _loop_losses(cfg.log_dir)
+        tm = res.timings
+        step_ms = [1e3 * x for x in tm["step_s"]]
+        wait_ms = [1e3 * x for x in tm["wait_s"]]
+        saves = [dict(name=os.path.basename(p), ms=1e3 * sec,
+                      bytes=os.path.getsize(p)) for p, sec in tm["ckpt"]]
+        loop_ms = float(np.median(step_ms[1:]))
+        log(f"[{tag}] (a) train(): {res.epochs_run} epochs, step "
+            f"{res.state.step} in {wall:.1f} s; 'Train Loss' {losses}")
+        log(f"[{tag}] (a) the loop's ms a step {[round(x, 2) for x in step_ms]}"
+            f" (median after the first {loop_ms:.2f}) beside phase 10's bare "
+            f"'default' step {[round(x, 2) for x in bare_steps]} (median "
+            f"after the first {bare:.2f}): {loop_ms / bare:.3f} x; blocked "
+            f"on the loader {[round(x, 2) for x in wait_ms]} ms a step; "
+            f"peak memory {peak / 2**30:.3f} GiB  [{smi}]")
+        for sv in saves:
+            log(f"[{tag}] (a) checkpoint {sv['name']}: saved in "
+                f"{sv['ms']:.1f} ms, {sv['bytes'] / 2**20:.1f} MiB on disk")
+        want = {k: LOOP_STEPS * TRAIN_DEFAULT_PER_STEP.get(k, 0)
+                for k in counts}
+        log(f"[{tag}] (a) launch counts {counts}")
+        files = sorted(os.listdir(tmp / "ck_a"))
+        if counts != want:
+            raise RuntimeError(f"loop launch counts {counts}, expected "
+                               f"{want}")
+        if sorted(losses) != [1, 2, 3, 4] or not all(
+                np.isfinite(v) for v in losses.values()):
+            raise RuntimeError(f"loop losses {losses}: want 4 finite")
+        if files != ["epoch_0", "epoch_1", "iter_3"]:
+            raise RuntimeError(f"loop checkpoints {files}")
+        out["a"] = dict(seconds=wall, losses=losses, step_ms=step_ms,
+                        loop_ms=loop_ms, bare_step_ms=bare_steps,
+                        bare_ms=bare, loader_wait_ms=wait_ms,
+                        checkpoints=saves, peak_memory_bytes=peak,
+                        launches=counts)
+
+        # (b) restore and resume
+        model_b, _ = build_nlospose(m, device=dev)
+        fresh = TrainState.create(model_b, cfg.train, steps_per_epoch=2)
+        _, epoch, giter = ckpt.restore_checkpoint(str(tmp / "ck_a/epoch_1"),
+                                                  fresh)
+        diff = _state_diff(fresh, res.state)
+        log(f"[{tag}] (b) epoch_1 restored into a fresh state: epoch "
+            f"{epoch}, global_iter {giter}, step {fresh.step}; differs from "
+            f"the live state in {len(diff)} tensors {diff[:5]}")
+        if diff or (epoch, giter) != (1, 4):
+            raise RuntimeError("a restored checkpoint is not the saved state")
+        payload = torch.load(tmp / "ck_a/epoch_0", map_location=dev,
+                             weights_only=True)
+        ckpt.restore_checkpoint(str(tmp / "ck_a/epoch_0"), fresh)
+        sd, opt = fresh.model.state_dict(), fresh.optimizer.state_dict()
+        bad0 = [k for k, v in payload["model"].items()
+                if not torch.equal(v, sd[k])]
+        bad0 += [f"optimizer {i} {k}"
+                 for i, st in payload["optimizer"]["state"].items()
+                 for k, v in st.items()
+                 if not torch.equal(v, opt["state"][i][k].to(v.device))]
+        if bad0 or (payload["epoch"], payload["global_iter"],
+                    fresh.step) != (0, 2, 2):
+            raise RuntimeError(f"epoch_0 restore differs: {bad0[:5]}")
+        log(f"[{tag}] (b) epoch_0 restored: equal to its file (parameters, "
+            f"statistics, Adam moments and counts), epoch 0, global_iter 2, "
+            f"step 2")
+        del model_b, fresh, payload, sd, opt
+        cfg_b = dataclasses.replace(cfg, log_dir=str(tmp / "log_b"))
+        with deterministic(warn_only=True):
+            res_b = train(cfg_b, source=SyntheticSource(cfg_b, length=8),
+                          workdir=str(tmp / "ck_b"),
+                          resume_from=str(tmp / "ck_a/epoch_0"), log_every=1,
+                          max_steps_per_epoch=2, device=dev)
+        losses_b = _loop_losses(cfg_b.log_dir)
+        d3 = abs(losses_b.get(3, float("nan")) - losses[3])
+        log(f"[{tag}] (b) resumed from epoch_0: epochs {res_b.epochs_run}, "
+            f"'Train Loss' {losses_b}; the first loss against (a)'s at "
+            f"iter 3: |d| {d3:.3e} (relative {d3 / abs(losses[3]):.3e}, "
+            f"limit {TRAIN_LOSS_TOL}), "
+            f"{'bit-identical' if d3 == 0 else 'not bit-identical'}")
+        if sorted(losses_b) != [3, 4] or not d3 <= TRAIN_LOSS_TOL * abs(
+                losses[3]):
+            raise RuntimeError("the resumed loop's first loss differs")
+        out["b"] = dict(losses=losses_b, first_loss_abs_diff=d3,
+                        bit_identical=d3 == 0)
+        del res_b
+        shutil.rmtree(tmp / "ck_b")
+        torch.cuda.empty_cache()
+
+        # (c) the pretrained, frozen autoencoder
+        unet = save_autoencoder(str(tmp / "unet.pth"), res.state.model)
+        pre = torch.load(unet, map_location=dev, weights_only=True)
+        cfg_c = dataclasses.replace(
+            cfg, log_dir=str(tmp / "log_c"),
+            model=dataclasses.replace(m, pretrain_autoencoder=True,
+                                      pretrain_autoencoder_path=unet),
+            train=dataclasses.replace(cfg.train, end_epoch=1))
+        res_c = train(cfg_c, source=SyntheticSource(cfg_c, length=8),
+                      workdir=str(tmp / "ck_c"), log_every=1,
+                      max_steps_per_epoch=1, weights=weights, device=dev)
+        named = dict(res_c.state.model.named_parameters())
+        held = res_c.state.optimizer.state
+        frozen_bad = [n for n, p in named.items()
+                      if n.startswith("autoencoder.")
+                      and (not torch.equal(p, pre[n[len("autoencoder."):]])
+                           or p in held)]
+        still = [n for n, p in named.items()
+                 if not n.startswith("autoencoder.")
+                 and torch.equal(p, weights[n].to(dev))]
+        n_ae = sum(n.startswith("autoencoder.") for n in named)
+        log(f"[{tag}] (c) one step with the pretrained autoencoder frozen: "
+            f"loss {res_c.last_metrics}; {n_ae} autoencoder tensors, "
+            f"{len(frozen_bad)} moved or with optimizer state "
+            f"{frozen_bad[:3]}; {len(named) - n_ae} other tensors, "
+            f"{len(still)} unmoved {still[:3]}")
+        if frozen_bad or still or res_c.state.step != 1:
+            raise RuntimeError("the frozen-autoencoder step is wrong")
+        out["c"] = dict(loss=res_c.last_metrics, autoencoder_tensors=n_ae,
+                        other_tensors=len(named) - n_ae)
+        del res_c, named, held, pre
+        shutil.rmtree(tmp / "ck_c")
+        torch.cuda.empty_cache()
+
+        # (d) evaluation
+        model = res.state.model
+        lct = make_lct_params(image_size=m.image_size[0],
+                              time_size=m.time_size, bin_len=m.bin_len,
+                              wall_size=m.wall_size, mode=m.mode,
+                              material=m.material, device=dev)
+        src = SyntheticSource(cfg, length=4)
+        with deterministic():
+            t0 = time.perf_counter()
+            ev = evaluate(model, res.state, lct, src, batch_size=2,
+                          num_workers=2, device=dev)
+            ev_wall = time.perf_counter() - t0
+            forward = make_forward(model)
+            ref = torch.cat([forward(torch.from_numpy(np.stack(
+                [src[i]["meas"] for i in (j, j + 1)])).to(dev), lct)[0]
+                for j in (0, 2)]).float().cpu().numpy()
+        jd = np.abs(ev["pred_joints"] - ref).max()
+        eval_step = make_eval_step(model)
+        with DataPipeline(src, 2, shuffle=False, num_workers=0) as pipe:
+            batches = list(device_prefetch(iter(pipe), dev))
+        ev_ms = []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for bt in batches:
+                eval_step(res.state, bt, lct)
+            end.record()
+            torch.cuda.synchronize()
+            ev_ms.append(start.elapsed_time(end))
+        ok = all(np.isfinite(ev[k]) for k in ("mpjpe", "pa_mpjpe", "pck"))
+        log(f"[{tag}] (d) evaluate(): MPJPE {ev['mpjpe']:.4f}, PA-MPJPE "
+            f"{ev['pa_mpjpe']:.4f}, PCK {ev['pck']:.4f} over "
+            f"{ev['n_samples']}; joints against make_forward max |d| "
+            f"{jd:.3e} voxel (limit {BATCH_TOL}); {ev['n_samples'] / ev_wall:.3f}"
+            f" volumes/s over the call ({ev_wall:.2f} s, 2 workers started), "
+            f"eval steps alone {[round(x, 2) for x in ev_ms]} ms for 4 "
+            f"volumes: {4e3 / ev_ms[-1]:.2f} volumes/s  [{smi}]")
+        if not ok or not jd <= BATCH_TOL:
+            raise RuntimeError("evaluate() is not finite or disagrees with "
+                               "make_forward")
+        out["d"] = dict({k: ev[k] for k in ("mpjpe", "pa_mpjpe", "pck",
+                                            "n_samples")},
+                        joints_max_abs_diff=float(jd), seconds=ev_wall,
+                        volumes_per_s=ev["n_samples"] / ev_wall,
+                        eval_steps_ms=ev_ms,
+                        eval_steps_volumes_per_s=4e3 / ev_ms[-1])
+        del res, model, lct, batches, eval_step, forward
+        shutil.rmtree(tmp / "ck_a")
+        torch.cuda.empty_cache()
+
+        # (e) the commands, each its own process on the card
+        size = str(m.grid_dim)
+        gpu = "cpu" if dev.type == "cpu" else str(dev.index or 0)
+        cmds = {
+            "cli.train": ["--synthetic", "--size", size, "--epochs", "1",
+                          "--steps-per-epoch", "2", "--model",
+                          str(tmp / "ck_e"), "--log", str(tmp / "log_e"),
+                          "--device", gpu],
+            "cli.test": ["--model", str(tmp / "ck_e"), "--synthetic",
+                         "--size", size, "--max-batches", "2", "--out",
+                         str(tmp / "out_e"), "--device", gpu],
+        }
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        out["e"] = {}
+        for name, args in cmds.items():
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", f"hiddenpose_tpu_torch.{name}", *args],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=LOOP_SECONDS)
+            sec = time.perf_counter() - t0
+            lines = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith(("restored", "MPJPE", "finished",
+                                       "using"))]
+            log(f"[{tag}] (e) python -m hiddenpose_tpu_torch.{name}: exit "
+                f"{r.returncode} in {sec:.1f} s; {lines}  [{smi}]")
+            out["e"][name] = dict(exit=r.returncode, seconds=sec,
+                                  lines=lines)
+            if r.returncode != 0:
+                log(r.stderr[-4000:])
+                raise RuntimeError(f"{name} exited {r.returncode}")
+        text = " ".join(out["e"]["cli.test"]["lines"])
+        if not ("restored" in text and "epoch_0" in text
+                and "MPJPE" in text):
+            raise RuntimeError(f"cli.test printed {text!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, out["a"]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2294,6 +2684,21 @@ def main() -> int:
               "from the root of a checkout, beside the package",
               file=sys.stderr)
         return 1
+    adopt_orphans()
+    try:
+        return run()
+    finally:
+        t0 = time.perf_counter()
+        stopped = stop_children()
+        # stderr: the result line stays the last line of stdout
+        print(f"chip_smoke: the loader's fork server stopped and children "
+              f"reaped in {time.perf_counter() - t0:.3f} s; killed "
+              f"{len(stopped)} child processes still running {stopped}",
+              file=sys.stderr, flush=True)
+
+
+def run() -> int:
+    """Phases 1-11 (1, 2 and 11 with ``--loop``) and the result lines."""
     # cuBLAS is deterministic only with a fixed workspace; set before the
     # first CUDA call (deterministic() checks for it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2314,6 +2719,14 @@ def main() -> int:
 
     smi = timed("1 toolchain", phase_toolchain)
     timed("2 build", phase_build)
+    if sys.argv[1:] == ["--loop"]:  # phase 11 alone, with its own bare step
+        train_loop, _ = timed("11 train loop", phase_train_loop, dev, smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_loop.json").write_text(json.dumps(dict(
+            device=smi, seconds=seconds, train_loop=train_loop), indent=1))
+        log(f"[11 train loop] alone: done  [{smi}]")
+        return 0
     rows, stem_vjp = timed("3 kernels", phase_kernels, dev)
     server, caps, serve, serve_counts = timed("4 serve", phase_serve, dev,
                                               smi)
@@ -2334,6 +2747,10 @@ def main() -> int:
         "10 train precision", phase_train_precision, dev, smi, highest)
     rows.update(prec_rows)
     del highest
+    torch.cuda.empty_cache()
+    train_loop, loop_counts = timed(
+        "11 train loop", phase_train_loop, dev, smi,
+        [s_["ms"] for s_ in train_precision["f32 default"]["steps"]])
 
     from hiddenpose_tpu_torch.ops.kernels import KERNELS
 
@@ -2359,10 +2776,12 @@ def main() -> int:
             # each main path's launches, counted from 0 just before it:
             # the serving burst, the 3 train steps, the 3 Sformer
             # captures, the probe script, the bf16 serving burst, phase
-            # 10's 3 + 1 + 3 train steps at 'default', 'high' and bf16
+            # 10's 3 + 1 + 3 train steps at 'default', 'high' and bf16,
+            # phase 11's train loop (4 steps at 'default')
             launches=(serve_counts[name] + train_counts[name]
                       + sformer_counts[name] + probe_counts[name]
-                      + bf16_counts[name] + prec_counts[name]),
+                      + bf16_counts[name] + prec_counts[name]
+                      + loop_counts[name]),
             max_abs_err=max(x["max_abs_err"] for x in on_path),
             max_abs_err_all_shapes=max(x["max_abs_err"] for x in r),
             ms=total("ms"), plain_ms=total("plain_ms"),
@@ -2384,7 +2803,7 @@ def main() -> int:
         stem_vjp=stem_vjp,
         serve=serve, end_to_end=e2e, train=train, sformer=sformer,
         probes=probes, serve_bf16=serve_bf16,
-        train_precision=train_precision), indent=1))
+        train_precision=train_precision, train_loop=train_loop), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,12 @@
 A port of ``hiddenpose_tpu`` (JAX, the reference) for one NVIDIA H100:
 measurement -> FeatureExtraction -> LCT -> normalize -> UNet3d ->
 PoseNet3D -> soft-argmax joints, served through
-:class:`hiddenpose_tpu_torch.serve.InferenceServer` and trained by
-``train/step.py``; and the transformer variant, video -> NlosPoseSformer ->
-SimDR logits -> joints (``models/sformer.py``).  Imports torch, never jax;
+:class:`hiddenpose_tpu_torch.serve.InferenceServer`, trained by
+``train/step.py`` in the epoch loop of ``train/loop.py`` over the sources
+of ``data/``, evaluated by ``eval/harness.py``, and driven from the
+command line by ``python -m hiddenpose_tpu_torch.cli.train`` / ``.test``;
+and the transformer variant, video -> NlosPoseSformer -> SimDR logits ->
+joints (``models/sformer.py``).  Imports torch, never jax;
 the hot kernels are hand-written CUDA under ``csrc/``.
 
 Every entry point that takes a ``device`` defaults to the GPU (``"cuda"``)

@@ -1,9 +1,11 @@
 """The model and training configuration of the ported paths.
 
 The fields of ``hiddenpose_tpu/config.py::ModelConfig`` that the ported
-paths read (NlosPose and the transformer family), and ``TrainConfig`` field
-for field, with the same defaults and the same presets, so the port runs
-where the JAX package is not installed.  Any object with these attributes
+paths read (NlosPose and the transformer family), ``DatasetConfig`` and
+``TrainConfig`` field for field, and the run fields of ``Config`` (log and
+checkpoint directories, phase, eval batch sizes, loader workers), with
+the same defaults and the same presets, so the port runs where the JAX
+package is not installed.  Any object with these attributes
 (the JAX package's ``Config`` included) is accepted wherever a config is.
 """
 
@@ -45,6 +47,32 @@ class ModelConfig:
     compute_dtype: str = "float32"
     # LCT FFT batch chunking (0 = fully batched)
     lct_batch_chunk: int = 0
+    # substitute a pretrained UNet3d (train/pretrain.py) and freeze it
+    pretrain_autoencoder: bool = False
+    pretrain_autoencoder_path: str = "./lib/nlos_unet.pth"
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """The reference defaults (``config/config_noise.py`` DATASET node)."""
+
+    name: str = "NlosPoseDataset"
+    num_joints: int = 24
+    target_type: str = "gaussian"
+    heatmap_size: Tuple[int, int, int] = (64, 64, 64)
+    vol_size: Tuple[int, int, int] = (256, 256, 256)
+    downsample_cnt: int = 1
+    sigma: float = 2.0
+    use_different_joints_weight: bool = True
+    phase: str = "train"
+    train_path: str = "/data2/nlospose/pose_v2_noise"
+    valid_path: str = "/data2/nlospose/pose_v2_noise"
+    test_path: str = "/data2/nlospose/pose_v2_noise"
+    simdr_split_ratio: int = 2
+    # the noise model of the reference's _noise dataloader
+    # (data/preprocess.py::add_noise)
+    noise: bool = False
+    noise_gaussian_sigma: float = 10.61
 
 
 @dataclass(frozen=True)
@@ -73,7 +101,15 @@ class TrainConfig:
 @dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    log_dir: str = "./log"
+    result_dir: str = "./result"
+    final_output_dir: str = "./checkpoints"
+    phase: str = "train"
+    test_batch_size: int = 2
+    valid_batch_size: int = 1
+    num_workers: int = 8
 
     def with_bf16(self) -> "Config":
         """Mixed precision: convolutions and matmuls in bfloat16, parameters,
@@ -90,11 +126,15 @@ class Config:
 
     def tiny(self, size: int = 16) -> "Config":
         """Every ratio of preset_t128 at ``size``^3 grids (for tests)."""
-        return replace(self, model=replace(
-            self.model,
-            bin_len=self.model.bin_len * (self.model.time_size // size),
-            time_size=size, image_size=(size, size), grid_dim=size,
-            heatmap_size=(size // 2,) * 3))
+        return replace(
+            self,
+            model=replace(
+                self.model,
+                bin_len=self.model.bin_len * (self.model.time_size // size),
+                time_size=size, image_size=(size, size), grid_dim=size,
+                heatmap_size=(size // 2,) * 3),
+            dataset=replace(self.dataset, heatmap_size=(size // 2,) * 3,
+                            vol_size=(size * 2,) * 3))
 
 
 def default_config() -> Config:

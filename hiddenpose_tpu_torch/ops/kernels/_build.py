@@ -109,11 +109,17 @@ def _compile(out: Path) -> str:
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
         logs = []
-        for name, p in zip(SOURCES, procs):
-            text, _ = p.communicate()
-            logs.append(f"== {name}\n{text}")
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{text}")
+        try:
+            for name, p in zip(SOURCES, procs):
+                text, _ = p.communicate()
+                logs.append(f"== {name}\n{text}")
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {name}:\n{text}")
+        finally:  # after a failure, stop the builds still running
+            for p in procs:
+                if p.poll() is None:
+                    p.terminate()
+                    p.wait()
         part = Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, "-shared", "-gencode=arch=compute_90a,code=sm_90a",

@@ -9,6 +9,7 @@ are updated in place, and ``step`` counts the updates.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterable, Optional
 
 import torch
 from torch import nn
@@ -26,9 +27,15 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, cfg: TrainConfig,
-               steps_per_epoch: int = 1) -> "TrainState":
-        optimizer, schedule = make_optimizer(cfg, model.parameters(),
-                                             steps_per_epoch)
+               steps_per_epoch: int = 1,
+               params: Optional[Iterable[nn.Parameter]] = None
+               ) -> "TrainState":
+        """``params``: the parameters the optimizer updates (all of the
+        model's by default; ``train/pretrain.py`` leaves the frozen
+        autoencoder's out)."""
+        optimizer, schedule = make_optimizer(
+            cfg, model.parameters() if params is None else params,
+            steps_per_epoch)
         return cls(model, optimizer, schedule)
 
     def apply_gradients(self) -> None:

@@ -25,6 +25,10 @@ both Adam moments as they carry weights):
 * every BatchNorm gets ``num_batches_tracked = 0`` in a state_dict, which
   the importer ignores.
 
+:func:`adam_state_from_jax` carries optax's Adam state (``mu``, ``nu``,
+the count) into a port ``TrainState``'s ``torch.optim.Adam``, so both
+packages' loops can start from one optimizer state.
+
 The transformer family (``NlosPoseSformer``, ``TimeSformer``) has no
 table: its port names are the flax paths joined by dots, so the map is a
 walk of the tree (:func:`sformer_state_dict_from_jax` and, back,
@@ -139,7 +143,9 @@ def _to_jax(t, kind) -> np.ndarray:
         a = np.transpose(a, (2, 3, 4, 1, 0))
     elif kind == "deconv":
         a = np.transpose(a[:, :, ::-1, ::-1, ::-1], (2, 3, 4, 0, 1))
-    return np.ascontiguousarray(a)
+    # a copy: .numpy() of a CPU tensor shares its memory, and a parameter
+    # updated in place would change the tree
+    return np.array(a, order="C")
 
 
 def sformer_state_dict_from_jax(params: Mapping,
@@ -218,3 +224,31 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         sd[name[:-len("running_var")] + "num_batches_tracked"] = \
             torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def adam_state_from_jax(state, mu: Mapping, nu: Mapping, count: int) -> None:
+    """Carry optax's ``scale_by_adam`` state into ``state`` (a port
+    ``TrainState`` whose optimizer is ``torch.optim.Adam``), in place.
+
+    ``mu`` and ``nu`` are trees shaped like the JAX NlosPose's params
+    (numpy leaves), ``count`` optax's update count.  Each parameter the
+    optimizer holds gets ``exp_avg`` = mu, ``exp_avg_sq`` = nu and
+    ``step`` = count (torch's Adam bias-corrects with its step after the
+    increment, optax with count + 1: the same number), and
+    ``state.step`` = count, which the schedule reads as optax's
+    ``scale_by_schedule`` reads its count."""
+    if not isinstance(state.optimizer, torch.optim.Adam):
+        raise TypeError(f"expected torch.optim.Adam, got "
+                        f"{type(state.optimizer).__name__}")
+    held = {p for g in state.optimizer.param_groups for p in g["params"]}
+    mu_t, nu_t = from_jax(mu), from_jax(nu)
+    for name, p in state.model.named_parameters():
+        if p not in held:
+            continue
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            # in the parameter's memory format, as Adam makes its own
+            "exp_avg": torch.empty_like(p).copy_(mu_t[name]),
+            "exp_avg_sq": torch.empty_like(p).copy_(nu_t[name]),
+        }
+    state.step = int(count)

@@ -1,17 +1,36 @@
 """The port's entry points default to the GPU: without one and without an
 explicit ``device="cpu"`` they raise a clear error and never carry on on
-the CPU; with ``device="cpu"`` they work."""
+the CPU; with ``device="cpu"`` they work.  The two commands are called
+through their ``main(argv)``, with ``--device cpu`` for ``device="cpu"``
+(and TensorFlow hidden: ``torch.utils.tensorboard`` loads it where it is
+installed, seconds to import; the GPU host has none).  The loop and
+``cli.train`` run no epoch here (their steps are tested in
+``test_torch_train_loop.py`` and ``test_torch_eval_cli.py``), and
+``cli.test`` one measured capture."""
 
+import dataclasses
+import os
+import sys
+import tempfile
+
+import numpy as np
 import pytest
 import torch
+from scipy.io import savemat
 
 from hiddenpose_tpu_torch import resolve_device
+from hiddenpose_tpu_torch.cli import test as cli_test
+from hiddenpose_tpu_torch.cli import train as cli_train
 from hiddenpose_tpu_torch.config import Config
+from hiddenpose_tpu_torch.data.dataset import SyntheticSource
+from hiddenpose_tpu_torch.eval.harness import evaluate
 from hiddenpose_tpu_torch.models.nlospose import build_nlospose
 from hiddenpose_tpu_torch.models.sformer import build_sformer
 from hiddenpose_tpu_torch.models.timesformer import build_timesformer
 from hiddenpose_tpu_torch.ops.lct import make_lct_params
 from hiddenpose_tpu_torch.serve import InferenceServer
+from hiddenpose_tpu_torch.train.loop import train
+from hiddenpose_tpu_torch.train.state import TrainState
 
 CFG = Config().tiny(16)
 TS_KW = dict(dim=16, num_frames=2, image_size=8, patch_size=4, channels=1,
@@ -24,6 +43,45 @@ def _server(**kw):
     return srv.device
 
 
+def _train(**kw):
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(
+            CFG, num_workers=0, log_dir=tmp,
+            train=dataclasses.replace(CFG.train, end_epoch=0))
+        result = train(cfg, source=SyntheticSource(cfg, length=2),
+                       workdir=tmp, **kw)
+        return next(result.state.model.parameters()).device
+
+
+def _evaluate(**kw):
+    model, lct = build_nlospose(CFG.model, device="cpu")
+    out = evaluate(model, TrainState.create(model, CFG.train), lct,
+                   SyntheticSource(CFG, length=2), num_workers=0, **kw)
+    assert out["n_samples"] == 2
+    return next(model.parameters()).device
+
+
+def _argv(kw):
+    return ["--device", "cpu"] if kw.get("device") == "cpu" else []
+
+
+def _cli_train(**kw):
+    with tempfile.TemporaryDirectory() as tmp:
+        result = cli_train.main([
+            "--synthetic", "--size", "16", "--epochs", "0", "--model", tmp,
+            "--log", tmp, *_argv(kw)])
+        return next(result.state.model.parameters()).device
+
+
+def _cli_test(**kw):
+    with tempfile.TemporaryDirectory() as tmp:
+        mat = os.path.join(tmp, "capture.mat")
+        savemat(mat, {"data_new": np.random.RandomState(0).rand(32, 32, 32)})
+        return torch.device(cli_test.main([
+            "--test", "test_realdata", "--data", mat, "--size", "16",
+            "--model", tmp, "--out", tmp, *_argv(kw)])["device"])
+
+
 ENTRY_POINTS = {
     "build_nlospose": lambda **kw: next(
         build_nlospose(CFG.model, **kw)[0].parameters()).device,
@@ -34,7 +92,17 @@ ENTRY_POINTS = {
         build_sformer(CFG.model, **kw).parameters()).device,
     "build_timesformer": lambda **kw: next(
         build_timesformer(**TS_KW, **kw).parameters()).device,
+    "train": _train,
+    "evaluate": _evaluate,
+    "cli.train": _cli_train,
+    "cli.test": _cli_test,
 }
+
+
+@pytest.fixture(autouse=True)
+def no_tensorflow(monkeypatch):
+    if "tensorflow" not in sys.modules:
+        monkeypatch.setitem(sys.modules, "tensorflow", None)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))

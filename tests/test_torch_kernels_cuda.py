@@ -1292,3 +1292,58 @@ def test_bf16_train_step_on_the_gpu_reaches_every_weight(dev):
     for n, p in model.named_parameters():
         assert p.dtype == torch.float32 and p.grad is not None, n
         assert p.grad.dtype == torch.float32, n
+
+
+class _WorkerProbeSource:
+    """A tiny synthetic source whose ids say, from the process that built
+    each sample, whether CUDA is initialised there and whether the kernel
+    library is loaded."""
+
+    def __init__(self, cfg, length):
+        from hiddenpose_tpu_torch.data.dataset import SyntheticSource
+
+        self.inner = SyntheticSource(cfg, length=length)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getitem__(self, index):
+        from hiddenpose_tpu_torch.ops.kernels import _build
+
+        item = dict(self.inner[index])
+        item["person_id"] += (f"|cuda={torch.cuda.is_initialized()}"
+                              f"|lib={_build._lib is not None}")
+        return item
+
+
+def test_pipeline_workers_and_prefetch_after_cuda_is_up(dev):
+    """With CUDA initialised and the kernel library loaded in this process,
+    two loader worker processes and pinned memory feed
+    ``device_prefetch`` the same batches, on the GPU, as loading in this
+    process does; the workers never initialise CUDA or load the
+    library."""
+    from hiddenpose_tpu_torch.config import Config
+    from hiddenpose_tpu_torch.data.dataset import DataPipeline
+    from hiddenpose_tpu_torch.data.device_prefetch import device_prefetch
+
+    K.conv3_planes(torch.zeros(1, 1, 4, 4, 4, device=dev),
+                   torch.zeros(3, 3, 3, 1, 1, device=dev))
+    src = _WorkerProbeSource(Config().tiny(16), length=5)
+    runs = []
+    for workers in (0, 2):
+        with DataPipeline(src, batch_size=2, num_workers=workers,
+                          drop_last=False, pin_memory=True) as pipe:
+            pipe.set_epoch(1)
+            if workers:
+                ids = [i for b in pipe for i in b["person_id"]]
+                assert len(ids) == 5
+                assert all(i.endswith("|cuda=False|lib=False")
+                           for i in ids), ids
+            runs.append(list(device_prefetch(iter(pipe), dev)))
+    assert len(runs[0]) == len(runs[1]) == 3
+    for a, b in zip(*runs):
+        assert a.keys() == b.keys() == {"meas", "vol", "joints",
+                                        "joints_vis"}
+        for k in a:
+            assert a[k].is_cuda and b[k].is_cuda
+            assert torch.equal(a[k], b[k]), k
