@@ -96,7 +96,27 @@ lines:
    hiddenpose_tpu_torch.cli.train`` then ``.cli.test`` as processes of
    their own: exit 0, the test restoring epoch_0 and printing an MPJPE.
    ``python3 chip_smoke.py --loop`` runs phases 1, 2 and 11 alone (phase
-   11 then times its own bare steps).
+   11 then times its own bare steps), ``--alt`` phases 1, 2 and 12;
+12. alt objectives (``train/alt_steps.py``), f32, TF32 off, the
+   comparisons under deterministic algorithms: (a) the SimDR step on the
+   full-width Sformer (phase 7's model, weights and video, bins from a
+   seed): 3 steps at 'highest' and one at 'default', ms by CUDA events,
+   peak memory, K9 launched 16 times a step (forward through
+   ``AttendFused``, backward the plain attention); one step with kernels
+   vs one with the plain attention within SIMDR_* and phase 6's parameter
+   limits; (b) the ``posenet2d`` NlosPose at t128 b2 on peaked weights:
+   the serving forward (K1 only) kernels vs plain within phase 5's limits,
+   once the joints spread; two ``make_train_step`` steps (K1, K5, K6, K8
+   a step as the 3D model's FeatureExtraction and UNet); one step
+   kernels vs plain, cut at visible_net's output with the 2D net's
+   cotangent shared within phase 6's TRAIN_* limits, whole within
+   POSENET2D_* (its 2D net amplifies any move of its input), beside the
+   plain step's spread under three 1e-7 moves of the measurement; (c)
+   ``make_heatmap3d_step`` on the t128 posenet3d_50 model: one step
+   (TRAIN_PER_STEP launches), kernels vs plain within TRAIN_*, its loss
+   equal to ``make_train_step``'s joint loss; (d) TokenPose at its
+   published config: the 2D-heatmap step on the GPU (3 timed) against
+   the same step on the CPU within TOKENPOSE_TOL (library ops only).
 
 Phase 3 also times, beside each kernel, the one PyTorch call that computes
 the same function where there is one (``library_ms``: a yardstick, used
@@ -1170,18 +1190,24 @@ def _module(name: str) -> str:
     return name.split(".")[0]
 
 
+def _grad_rel_l2(a, b):
+    """Relative L2 distance of gradients ``a`` from ``b`` (by name), over
+    each top-level module."""
+    out = {}
+    for mod in sorted({_module(n) for n in b}):
+        names = [n for n in b if _module(n) == mod]
+        num = sum(float((a[n] - b[n]).double().pow(2).sum()) for n in names)
+        den = sum(float(b[n].double().pow(2).sum()) for n in names)
+        out[mod] = (num / den) ** 0.5
+    return out
+
+
 def _train_readings(a, b):
     """How far step result ``a`` is from ``b`` (dicts of loss, grads,
     params, stats by name)."""
     loss = {k: abs(a["loss"][k] - b["loss"][k]) / abs(b["loss"][k])
             for k in b["loss"]}
-    grad_l2 = {}
-    for mod in sorted({_module(n) for n in b["grads"]}):
-        names = [n for n in b["grads"] if _module(n) == mod]
-        num = sum(float((a["grads"][n] - b["grads"][n]).double().pow(2).sum())
-                  for n in names)
-        den = sum(float(b["grads"][n].double().pow(2).sum()) for n in names)
-        grad_l2[mod] = (num / den) ** 0.5
+    grad_l2 = _grad_rel_l2(a["grads"], b["grads"])
     grad_max = sorted(
         ((float((a["grads"][n] - b["grads"][n]).abs().max())
           / max(float(b["grads"][n].abs().max()), 1e-30), n)
@@ -2672,6 +2698,543 @@ def phase_train_loop(dev, smi, bare_steps=None):
     return out, out["a"]["launches"]
 
 
+# Phase 12: the other objectives and the 2D pose models.
+# 12a, the SimDR step on the full-width Sformer, one step with kernels vs
+# one with the plain attention from the same weights: the loss within
+# SIMDR_LOSS_TOL relative, every parameter's gradient within
+# SIMDR_GRAD_L2_TOL relative L2, the new parameters within TRAIN_PARAM_TOL
+# where the two gradients agree, TRAIN_SIGN_AGREE of the large gradient
+# elements of one sign.  12d, TokenPose's 2D-heatmap step on the GPU
+# against the same step on the CPU: loss and gradients within
+# TOKENPOSE_TOL (relative; relative L2 over all), the new parameters as
+# 12a's.
+SIMDR_LOSS_TOL = 1e-4
+# 12b, the posenet2d step, kernels vs plain.  The step cut at visible_net's
+# output, its 2D-net part shared (one cotangent for both sides), holds the
+# kernels' FeatureExtraction and UNet gradients and the voxel loss at
+# TRAIN_* (readings, NVIDIA H100 80GB HBM3, 700 W; PERF.md: 2.4e-4, 2.1e-3,
+# 1.1e-7).  The whole step is ill-conditioned in its 2D net: that net's
+# part alone, its input's values moved by 1e-7 (relative) with the depths
+# kept, moves its gradients 0.023-0.052 (relative L2, three seeds); and
+# the plain step on a measurement moved by 1e-7 lies 2.8e-5-1.8e-4 (loss)
+# and up to 0.148 (gradients: UNet 0.108-0.148, 2D net 0.077-0.096,
+# FeatureExtraction 0.013-0.031) from itself, with no top-4 depth index
+# and no min / max voxel of visible_net moving.  Kernels vs plain read
+# 1.38e-4 and 0.096 / 0.086 / 0.049 there, inside that spread, so the
+# whole step is held at about 1.5 x the spread's largest readings; the
+# statistics, new parameters and signs at TRAIN_*.
+POSENET2D_LOSS_TOL = 2.8e-4
+POSENET2D_GRAD_L2_TOL = 0.21
+SIMDR_GRAD_L2_TOL = 1e-3
+SIMDR_LAUNCHES_PER_STEP = 16
+TOKENPOSE_TOL = 1e-4
+# 12b: launches of each kernel in one t128 b2 train step of the posenet2d
+# NlosPose (FeatureExtraction and the UNet as in the 3D model; the 2D
+# backbone runs no kernel), and in one serving forward
+POSENET2D_PER_STEP = dict(TRAIN_PER_STEP, maxpool3d_k3s2p1=0,
+                          maxpool3d_k3s2p1_vjp=0, conv3_mxu=0,
+                          conv3_mxu_dx=0)
+POSENET2D_PER_FORWARD = {"conv3_planes": TRAIN_PER_STEP["conv3_planes"]}
+
+
+def _param_step(model, step_fn, use_kernels=True):
+    """One optimizer step of a parameters-only model from its current
+    weights, by ``step_fn(optimizer)``: loss, gradients, new parameters."""
+    from hiddenpose_tpu_torch.config import TrainConfig
+    from hiddenpose_tpu_torch.train.optim import make_optimizer
+
+    if hasattr(model, "set_use_kernels"):
+        model.set_use_kernels(use_kernels)
+    opt = make_optimizer(TrainConfig(), model.parameters())[0]
+    loss = step_fn(opt)["loss"].item()
+    if hasattr(model, "set_use_kernels"):
+        model.set_use_kernels(True)
+    return dict(loss=loss,
+                grads={n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()},
+                params={n: p.detach().clone()
+                        for n, p in model.named_parameters()})
+
+
+def _param_readings(a, b):
+    """How far param-step result ``a`` is from ``b``: the loss (relative),
+    each parameter's gradient and all of them (relative L2), the new
+    parameters where the two gradients agree, the share of large gradient
+    elements of one sign."""
+    rel = {}
+    num_all = den_all = 0.0
+    for n, gb in b["grads"].items():
+        num = float((a["grads"][n].to(gb.device) - gb).double().pow(2).sum())
+        den = float(gb.double().pow(2).sum())
+        rel[n] = (num / max(den, 1e-60)) ** 0.5
+        num_all, den_all = num_all + num, den_all + den
+    param_err, agree, total = 0.0, 0, 0
+    for n, gb in b["grads"].items():
+        ga = a["grads"][n].to(gb.device)
+        close = ((ga - gb).abs() <= 0.25 * gb.abs()) & (gb.abs() >= 1e-5)
+        if close.any():
+            param_err = max(param_err, float(
+                (a["params"][n].to(gb.device) - b["params"][n])[close]
+                .abs().max()))
+        big = gb.abs() > 1e-2 * gb.abs().max()
+        agree += int(((torch.sign(ga) == torch.sign(gb)) & big).sum())
+        total += int(big.sum())
+    worst = max(rel, key=rel.get)
+    return dict(loss_rel=abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                grad_rel_l2_all=(num_all / den_all) ** 0.5,
+                grad_rel_l2_worst=(worst, rel[worst]),
+                param_max_abs=param_err, sign_agree=agree / max(total, 1))
+
+
+def _event_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def alt_simdr(dev, smi):
+    """12a: the SimDR step on the full-width Sformer (phase 7's model,
+    weights and video)."""
+    from hiddenpose_tpu_torch.config import TrainConfig, t128_config
+    from hiddenpose_tpu_torch.models.sformer import sformer_from_config
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.train.alt_steps import make_simdr_step
+    from hiddenpose_tpu_torch.train.optim import make_optimizer
+
+    cfg = t128_config().model
+    weights = sformer_weights(cfg)
+    model = sformer_from_config(cfg, dtype="float32").to(dev)
+    model.load_state_dict(weights)
+    k = cfg.out_dim // 4
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"video": sformer_videos(dev, seeds=(0,))[0],
+             "target_bins": torch.randint(0, k, (1, cfg.num_joints, 3),
+                                          device=dev, generator=g),
+             "target_weight": torch.ones(1, cfg.num_joints, device=dev)}
+
+    # the main path: three steps at 'highest' and one at 'default'
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts = {}
+    steps = []
+    for precision, n in (("highest", 3), ("default", 1)):
+        step = make_simdr_step(model, matmul_precision=precision)
+        opt = make_optimizer(TrainConfig(), model.parameters())[0]
+        for _ in range(n):
+            K.reset_launch_counts()
+            ms, met = _event_ms(lambda: step(opt, batch))
+            c = K.launch_counts()
+            counts = {name: counts.get(name, 0) + v for name, v in c.items()}
+            steps.append(dict(precision=precision, ms=ms,
+                              loss=met["loss"].item(), attend=c["attend"]))
+            log(f"[12a simdr] step at {precision!r}: loss "
+                f"{steps[-1]['loss']:.6g} in {ms:.2f} ms, {c['attend']} K9 "
+                f"launches")
+            if c["attend"] != SIMDR_LAUNCHES_PER_STEP or any(
+                    v for name, v in c.items() if name != "attend"):
+                raise RuntimeError(f"12a: launch counts {c}, expected "
+                                   f"{SIMDR_LAUNCHES_PER_STEP} of attend")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(s_["loss"]) for s_ in steps):
+        raise RuntimeError("12a: a SimDR loss is not finite")
+    _, f, _, h, w = batch["video"].shape
+    tokens = cfg.num_joints + f * (h // cfg.patch_size) * (w // cfg.patch_size)
+    log(f"[12a simdr] {tokens} tokens, dim {cfg.patch_feature_dim} depth "
+        f"{cfg.depth}: 'highest' "
+        f"steps 2 and 3 {steps[1]['ms']:.2f} / {steps[2]['ms']:.2f} ms, "
+        f"'default' {steps[3]['ms']:.2f} ms; peak memory "
+        f"{peak / 2**30:.3f} GiB  [{smi}]")
+
+    step = make_simdr_step(model)
+    res = {}
+    for flag in (True, False):
+        model.load_state_dict(weights)
+        with deterministic(warn_only=True):
+            res[flag] = _param_step(model, lambda o: step(o, batch), flag)
+    vs = _param_readings(res[True], res[False])
+    log(f"[12a simdr] kernels vs plain, one step: loss rel "
+        f"{vs['loss_rel']:.3e} (tolerance {SIMDR_LOSS_TOL}); gradients rel "
+        f"L2 over all {vs['grad_rel_l2_all']:.3e}, worst parameter "
+        f"{vs['grad_rel_l2_worst']} (tolerance {SIMDR_GRAD_L2_TOL}); new "
+        f"params max abs err where the gradients agree "
+        f"{vs['param_max_abs']:.3e} ({TRAIN_PARAM_TOL}); large gradient "
+        f"elements of one sign {vs['sign_agree']:.5f} "
+        f"({TRAIN_SIGN_AGREE})")
+    if not (vs["loss_rel"] <= SIMDR_LOSS_TOL
+            and vs["grad_rel_l2_worst"][1] <= SIMDR_GRAD_L2_TOL
+            and vs["param_max_abs"] <= TRAIN_PARAM_TOL
+            and vs["sign_agree"] >= TRAIN_SIGN_AGREE):
+        raise RuntimeError("12a: the SimDR step's kernels and plain "
+                           "versions disagree")
+    return dict(tokens=tokens, steps=steps, peak_memory_bytes=peak,
+                kernels_vs_plain=vs), counts
+
+
+def _posenet2d_cut(model, weights, batch, lct, use_kernels, cot=None,
+                   meas=None):
+    """The posenet2d training forward from ``weights``, cut at visible_net:
+    its output and the voxels it picks (each channel's first min and max
+    after the ReLU, the top-4 depth indices).  With ``cot``, a cotangent on
+    that output, also the voxel loss and the gradients of ``voxel_loss +
+    sum(out * cot)``: the step's FeatureExtraction and UNet gradients for a
+    2D-net part held fixed."""
+    import hiddenpose_tpu_torch.models.nlospose as nlospose_module
+    from hiddenpose_tpu_torch.losses import bce_dice_loss
+
+    seen, real = {}, nlospose_module.visible_net
+
+    def spy(x, k=4):
+        seen["volume"], seen["out"] = x, real(x, k)
+        return seen["out"]
+
+    model.load_state_dict(weights)
+    model.set_use_kernels(use_kernels)
+    model.zero_grad(set_to_none=True)
+    res = {}
+    with mock.patch.object(nlospose_module, "visible_net", spy), \
+            torch.set_grad_enabled(cot is not None), \
+            deterministic(warn_only=True):
+        _, refine = model.train()(batch["meas"] if meas is None else meas,
+                                  lct)
+        if cot is not None:
+            b = refine.shape[0]
+            voxel = bce_dice_loss(refine.reshape(b, -1),
+                                  batch["vol"].reshape(b, -1))
+            (voxel + (seen["out"] * cot).sum()).backward()
+            res["voxel_loss"] = voxel.item()
+            res["grads"] = {n: p.grad.detach().clone()
+                            for n, p in model.named_parameters()
+                            if p.grad is not None}
+    torch.cuda.synchronize()
+    model.set_use_kernels(True)
+    out = seen["out"].detach()
+    x = torch.relu(seen["volume"].detach()).flatten(2)
+    res.update(out=out, argmin=x.argmin(-1), argmax=x.argmax(-1),
+               depths=out[:, out.shape[1] // 2:])
+    return res
+
+
+def _pick_changes(a, b):
+    """How many of visible_net's picks differ between two cuts."""
+    return {k: int((a[k] != b[k]).sum()) for k in ("argmin", "argmax",
+                                                     "depths")}
+
+
+def _posenet2d_head(model, weights, flat, batch):
+    """The 2D net's part of the posenet2d step from visible_net's output
+    ``flat``: the joint loss, its gradient in ``flat`` and in the 2D net's
+    parameters."""
+    from hiddenpose_tpu_torch.losses import l2_joint_location_loss
+
+    model.load_state_dict(weights)
+    net, cfg = model.pose_net.train(), model.cfg
+    net.zero_grad(set_to_none=True)
+    x = flat.detach().clone().requires_grad_(True)
+    with deterministic(warn_only=True):
+        hm = net(x)
+        b, _, h, w = hm.shape
+        loss = l2_joint_location_loss(
+            hm.reshape(b, cfg.num_joints, cfg.heatmap_size[0], h, w),
+            batch["joints"], batch["joints_vis"])
+        loss.backward()
+    return loss.item(), x.grad, {n: p.grad.detach().clone()
+                                 for n, p in net.named_parameters()}
+
+
+def alt_posenet2d(dev, smi):
+    """12b: the posenet2d NlosPose at t128, batch 2: the serving forward
+    and one train step, kernels against plain, whole and cut at
+    visible_net's output; and the readings of the step's own spread."""
+    import dataclasses
+
+    from hiddenpose_tpu_torch.config import TrainConfig, t128_config
+    from hiddenpose_tpu_torch.data.synthetic import make_batch
+    from hiddenpose_tpu_torch.models.nlospose import NlosPose, build_nlospose
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.ops.softargmax import softmax_integral
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
+    from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+
+    cfg = t128_config()
+    m = dataclasses.replace(cfg.model, backbone="posenet2d")
+    with torch.device("meta"):
+        template = NlosPose(m)
+    weights = peaked_state_dict(template, seed=1)
+    model, lct = build_nlospose(m, device=dev)
+    model.load_state_dict(weights)
+    _, caps = t128_captures(B)
+    meas = torch.from_numpy(np.stack(caps)).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model(meas, lct)[0]
+
+    forward()  # warm-up
+    K.reset_launch_counts()
+    fwd_ms, hm = _event_ms(forward)
+    counts = K.launch_counts()
+    want = {k: POSENET2D_PER_FORWARD.get(k, 0) for k in counts}
+    log(f"[12b posenet2d] serving forward b{B}: heatmaps "
+        f"{tuple(hm.shape)} in {fwd_ms:.2f} ms, launch counts {counts}")
+    side = m.image_size[0] // 4  # the 2D net's output: a quarter
+    if counts != want or hm.shape != (B, m.num_joints, m.heatmap_size[0],
+                                      side, side):
+        raise RuntimeError(f"12b forward: launch counts {counts} (expected "
+                           f"{want}), heatmaps {tuple(hm.shape)}")
+    joints = softmax_integral(hm, m.num_joints).reshape(B, m.num_joints, 3)
+    j_spread = float(joints.std(dim=1).min())
+    outs = {}
+    for flag in (True, False):
+        model.set_use_kernels(flag)
+        with deterministic():
+            outs[flag] = forward()
+    model.set_use_kernels(True)
+    hm_rel = float((outs[True] - outs[False]).abs().max()
+                   / outs[False].abs().max())
+    j_err = float((softmax_integral(outs[True], m.num_joints)
+                   - softmax_integral(outs[False], m.num_joints))
+                  .abs().max())
+    log(f"[12b posenet2d] joints spread over joints (smallest std of an "
+        f"axis) {j_spread:.3f} voxels; kernels vs plain: heatmaps max rel "
+        f"err {hm_rel:.3e} (tolerance {E2E_HM_TOL}), joints max err "
+        f"{j_err:.3e} voxels ({E2E_JOINT_TOL})")
+    if not bool(torch.isfinite(hm).all()) or j_spread < 0.5 \
+            or not hm_rel <= E2E_HM_TOL or not j_err <= E2E_JOINT_TOL:
+        raise RuntimeError("12b: the posenet2d forward is off")
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        [0, 1], m.time_size, m.image_size[0], m.grid_dim, m.heatmap_size[0],
+        m.bin_len).items()}
+    step = make_train_step(model)
+    # the main path: two steps, counted and timed
+    model.load_state_dict(weights)
+    state = TrainState.create(model, TrainConfig())
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_counts, step_ms, losses = {}, [], []
+    for _ in range(2):
+        K.reset_launch_counts()
+        ms, met = _event_ms(lambda: step(state, batch, lct))
+        c = K.launch_counts()
+        train_counts = {k: train_counts.get(k, 0) + v for k, v in c.items()}
+        step_ms.append(ms)
+        losses.append({k: v.item() for k, v in met.items()})
+        if c != {k: POSENET2D_PER_STEP.get(k, 0) for k in c}:
+            raise RuntimeError(f"12b step: launch counts {c}, expected "
+                               f"{POSENET2D_PER_STEP}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[12b posenet2d] train steps at 'highest': "
+        f"{[round(x, 2) for x in step_ms]} "
+        f"ms, losses {losses}, peak memory {peak / 2**30:.3f} GiB; launch "
+        f"counts of the last step: K1 {c['conv3_planes']}, K5 "
+        f"{c['conv3_planes_adjoint']}, K6 {c['conv3_planes_wgrad']}, K8 "
+        f"{c['max_pool2_bwd']}  [{smi}]")
+    if not all(np.isfinite(v) for d in losses for v in d.values()):
+        raise RuntimeError("12b: a train loss is not finite")
+    kern = _step_result(model, weights, step, batch, lct, True)
+    plain = _step_result(model, weights, step, batch, lct, False)
+    vs = _train_readings(kern, plain)
+    _log_readings("12b posenet2d", "train step, kernels vs plain", vs)
+    # the step cut at visible_net's output, its 2D-net part held fixed: one
+    # cotangent, from the plain forward's output, for both sides, so that
+    # the kernels' FeatureExtraction and UNet gradients meet TRAIN_*
+    plain_cut = _posenet2d_cut(model, weights, batch, lct, False)
+    _, cot, _ = _posenet2d_head(model, weights, plain_cut["out"], batch)
+    cut = {flag: _posenet2d_cut(model, weights, batch, lct, flag, cot)
+           for flag in (True, False)}
+    cut_vs = dict(voxel_loss_rel=abs(cut[True]["voxel_loss"]
+                                     - cut[False]["voxel_loss"])
+                  / abs(cut[False]["voxel_loss"]),
+                  grad_rel_l2=_grad_rel_l2(cut[True]["grads"],
+                                           cut[False]["grads"]),
+                  picks_changed=_pick_changes(cut[True], cut[False]))
+    log(f"[12b posenet2d] the step cut at visible_net's output, the 2D net's "
+        f"cotangent shared, kernels vs plain: voxel loss rel "
+        f"{cut_vs['voxel_loss_rel']:.3e} (tolerance {TRAIN_LOSS_TOL}), grads "
+        f"rel L2 {cut_vs['grad_rel_l2']} ({TRAIN_GRAD_L2_TOL}); visible_net's "
+        f"picks that differ {cut_vs['picks_changed']} of "
+        f"{plain_cut['depths'].numel()} depths")
+    # the amplifier: the plain step on a measurement moved by 1e-7
+    # (relative) for three seeds, with visible_net's picks that move; and
+    # the 2D net's part alone on its input's values moved by 1e-7
+    spread, gain = [], []
+    head = _posenet2d_head(model, weights, plain_cut["out"], batch)
+    half = plain_cut["out"].shape[1] // 2
+    for seed in range(3):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        moved = dict(batch, meas=batch["meas"] * (1 + 1e-7 * torch.randn(
+            batch["meas"].shape, generator=g, device=dev)))
+        r = _train_readings(
+            _step_result(model, weights, step, moved, lct, False), plain)
+        r["picks_changed"] = _pick_changes(
+            _posenet2d_cut(model, weights, batch, lct, False,
+                           meas=moved["meas"]), plain_cut)
+        spread.append(r)
+        _log_readings("12b posenet2d", f"plain vs plain on a 1e-7 moved "
+                      f"measurement (seed {seed}); picks that differ "
+                      f"{r['picks_changed']}", r)
+        flat = plain_cut["out"].clone()
+        flat[:, :half] *= 1 + 1e-7 * torch.randn(
+            flat[:, :half].shape, generator=g, device=dev)
+        moved_head = _posenet2d_head(model, weights, flat, batch)
+        gain.append(dict(loss_rel=abs(moved_head[0] - head[0]) / abs(head[0]),
+                         input_grad_rel_l2=float((moved_head[1] - head[1])
+                                                 .norm() / head[1].norm()),
+                         grad_rel_l2=_grad_rel_l2(moved_head[2], head[2])))
+        log(f"[12b posenet2d] the 2D net's part alone, its input's values "
+            f"moved by 1e-7 (seed {seed}), depths kept: {gain[-1]}")
+    ok = (max(vs["loss_rel"].values()) <= POSENET2D_LOSS_TOL
+          and max(vs["grad_rel_l2"].values()) <= POSENET2D_GRAD_L2_TOL
+          and vs["stats_max_rel"] <= TRAIN_STATS_TOL
+          and vs["param_max_abs"] <= TRAIN_PARAM_TOL
+          and vs["sign_agree"] >= TRAIN_SIGN_AGREE
+          and cut_vs["voxel_loss_rel"] <= TRAIN_LOSS_TOL
+          and max(cut_vs["grad_rel_l2"].values()) <= TRAIN_GRAD_L2_TOL)
+    if not ok:
+        raise RuntimeError("12b: the posenet2d train step's kernels and "
+                           "plain versions disagree")
+    return dict(forward_ms=fwd_ms, joints_spread=j_spread,
+                heatmaps_rel_err=hm_rel, joints_err_voxels=j_err,
+                step_ms=step_ms, losses=losses, peak_memory_bytes=peak,
+                kernels_vs_plain=vs, cut_kernels_vs_plain=cut_vs,
+                plain_vs_moved_plain=spread, net_2d_gain=gain), \
+        {k: counts.get(k, 0) + train_counts.get(k, 0) for k in counts}
+
+
+def alt_heatmap3d(dev, smi):
+    """12c: the 3D-heatmap step on the t128 posenet3d_50 model, kernels
+    against plain; its loss is make_train_step's joint loss."""
+    from hiddenpose_tpu_torch.config import TrainConfig, t128_config
+    from hiddenpose_tpu_torch.data.synthetic import make_batch
+    from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.train.alt_steps import make_heatmap3d_step
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
+
+    cfg = t128_config()
+    m = cfg.model
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        [0, 1], m.time_size, m.image_size[0], m.grid_dim, m.heatmap_size[0],
+        m.bin_len).items()}
+    weights = t128_weights(cfg)
+    model, lct = build_nlospose(m, device=dev)
+    step = make_heatmap3d_step(model)
+    # the main path: one step, counted and timed
+    model.load_state_dict(weights)
+    state = TrainState.create(model, TrainConfig())
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    ms, met = _event_ms(lambda: step(state, batch, lct))
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[12c heatmap3d] one step: loss {met['loss'].item():.6g} in "
+        f"{ms:.2f} ms (the first of this model: cuDNN's plans included), "
+        f"peak memory {peak / 2**30:.3f} GiB, launch counts {counts}  "
+        f"[{smi}]")
+    if counts != {k: TRAIN_PER_STEP.get(k, 0) for k in counts}:
+        raise RuntimeError(f"12c: launch counts {counts}, expected "
+                           f"{TRAIN_PER_STEP}")
+    kern = _step_result(model, weights, step, batch, lct, True)
+    plain = _step_result(model, weights, step, batch, lct, False)
+    full = _step_result(model, weights, make_train_step(model), batch, lct,
+                        True)
+    vs = _train_readings(kern, plain)
+    _log_readings("12c heatmap3d", "kernels vs plain", vs)
+    joint_rel = abs(kern["loss"]["loss"] - full["loss"]["joint_loss"]) \
+        / abs(full["loss"]["joint_loss"])
+    log(f"[12c heatmap3d] its loss vs make_train_step's joint loss on the "
+        f"same weights and batch: rel {joint_rel:.3e} (tolerance "
+        f"{TRAIN_LOSS_TOL})")
+    ok = (max(vs["loss_rel"].values()) <= TRAIN_LOSS_TOL
+          and max(vs["grad_rel_l2"].values()) <= TRAIN_GRAD_L2_TOL
+          and vs["stats_max_rel"] <= TRAIN_STATS_TOL
+          and vs["param_max_abs"] <= TRAIN_PARAM_TOL
+          and vs["sign_agree"] >= TRAIN_SIGN_AGREE
+          and joint_rel <= TRAIN_LOSS_TOL)
+    if not ok:
+        raise RuntimeError("12c: the heatmap3d step is off")
+    return dict(ms=ms, loss=met["loss"].item(), peak_memory_bytes=peak,
+                kernels_vs_plain=vs, vs_joint_loss_rel=joint_rel), counts
+
+
+def alt_tokenpose(dev, smi):
+    """12d: TokenPose at its published config, the 2D-heatmap step on the
+    GPU against the same step on the CPU."""
+    from hiddenpose_tpu_torch.config import TrainConfig
+    from hiddenpose_tpu_torch.data.targets import generate_gaussian_heatmap_2d
+    from hiddenpose_tpu_torch.models.tokenpose import build_tokenpose
+    from hiddenpose_tpu_torch.train.optim import make_optimizer
+    from hiddenpose_tpu_torch.train.alt_steps import make_heatmap2d_step
+    from hiddenpose_tpu_torch.utils.peaked import (
+        peaked_transformer_state_dict,
+    )
+
+    rng = np.random.RandomState(0)
+    joints = rng.uniform(0, 64, (2, 24, 2))
+    maps, w = zip(*(generate_gaussian_heatmap_2d(j) for j in joints))
+    batch = {"feature": rng.randn(2, 128, 64, 64).astype(np.float32),
+             "target_heatmaps": np.stack(maps),
+             "target_weight": np.stack(w)[..., 0]}
+    res, ms = {}, []
+    for where in ("cpu", dev):
+        model = build_tokenpose(device=where)
+        if not res:
+            weights = peaked_transformer_state_dict(model, 1)
+        model.load_state_dict(weights)
+        model.train()
+        tb = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+
+        def step_fn(opt):
+            return make_heatmap2d_step(lambda b: model(b["feature"]),
+                                       opt)(tb)
+
+        if where != "cpu":
+            opt = make_optimizer(TrainConfig(), model.parameters())[0]
+            for _ in range(3):  # the main path: 3 steps, timed
+                ms.append(_event_ms(lambda: step_fn(opt))[0])
+            model.load_state_dict(weights)
+            with deterministic(warn_only=True):
+                res[where] = _param_step(model, step_fn)
+        else:
+            res[where] = _param_step(model, step_fn)
+    vs = _param_readings(res[dev], res["cpu"])
+    log(f"[12d tokenpose] published config (feature (2, 128, 64, 64), dim "
+        f"192, 3 x 2 layers, 64 x 64 heatmaps, sine-full): GPU steps "
+        f"{[round(x, 2) for x in ms]} ms (library ops only)  [{smi}]")
+    log(f"[12d tokenpose] GPU vs CPU, one step: loss rel "
+        f"{vs['loss_rel']:.3e}, gradients rel L2 {vs['grad_rel_l2_all']:.3e} "
+        f"(tolerance {TOKENPOSE_TOL}); new params max abs err where the "
+        f"gradients agree {vs['param_max_abs']:.3e} ({TRAIN_PARAM_TOL}); "
+        f"one sign {vs['sign_agree']:.5f}")
+    if not (vs["loss_rel"] <= TOKENPOSE_TOL
+            and vs["grad_rel_l2_all"] <= TOKENPOSE_TOL
+            and vs["param_max_abs"] <= TRAIN_PARAM_TOL
+            and vs["sign_agree"] >= TRAIN_SIGN_AGREE):
+        raise RuntimeError("12d: TokenPose's step differs between GPU and "
+                           "CPU")
+    return dict(step_ms=ms, gpu_vs_cpu=vs)
+
+
+def phase_alt_objectives(dev, smi):
+    """Phase 12: 12a-12d; the launch counts of their main-path runs."""
+    out, counts = {}, {}
+    for name, fn in (("simdr", alt_simdr), ("posenet2d", alt_posenet2d),
+                     ("heatmap3d", alt_heatmap3d)):
+        t0 = time.perf_counter()
+        out[name], c = fn(dev, smi)
+        out[name]["seconds"] = time.perf_counter() - t0
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["tokenpose"] = alt_tokenpose(dev, smi)
+    out["tokenpose"]["seconds"] = time.perf_counter() - t0
+    return out, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2698,7 +3261,8 @@ def main() -> int:
 
 
 def run() -> int:
-    """Phases 1-11 (1, 2 and 11 with ``--loop``) and the result lines."""
+    """Phases 1-12 (1, 2 and 11 with ``--loop``, 1, 2 and 12 with
+    ``--alt``) and the result lines."""
     # cuBLAS is deterministic only with a fixed workspace; set before the
     # first CUDA call (deterministic() checks for it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2727,6 +3291,16 @@ def run() -> int:
             device=smi, seconds=seconds, train_loop=train_loop), indent=1))
         log(f"[11 train loop] alone: done  [{smi}]")
         return 0
+    if sys.argv[1:] == ["--alt"]:  # phase 12 alone
+        alt, alt_counts = timed("12 alt objectives", phase_alt_objectives,
+                                dev, smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_alt.json").write_text(json.dumps(dict(
+            device=smi, seconds=seconds, alt_objectives=alt,
+            launches=alt_counts), indent=1, default=str))
+        log(f"[12 alt objectives] alone: done  [{smi}]")
+        return 0
     rows, stem_vjp = timed("3 kernels", phase_kernels, dev)
     server, caps, serve, serve_counts = timed("4 serve", phase_serve, dev,
                                               smi)
@@ -2751,6 +3325,9 @@ def run() -> int:
     train_loop, loop_counts = timed(
         "11 train loop", phase_train_loop, dev, smi,
         [s_["ms"] for s_ in train_precision["f32 default"]["steps"]])
+    torch.cuda.empty_cache()
+    alt, alt_counts = timed("12 alt objectives", phase_alt_objectives, dev,
+                            smi)
 
     from hiddenpose_tpu_torch.ops.kernels import KERNELS
 
@@ -2777,11 +3354,13 @@ def run() -> int:
             # the serving burst, the 3 train steps, the 3 Sformer
             # captures, the probe script, the bf16 serving burst, phase
             # 10's 3 + 1 + 3 train steps at 'default', 'high' and bf16,
-            # phase 11's train loop (4 steps at 'default')
+            # phase 11's train loop (4 steps at 'default'), phase 12's
+            # 3 + 1 SimDR steps, posenet2d forward and 2 steps, and
+            # heatmap3d step
             launches=(serve_counts[name] + train_counts[name]
                       + sformer_counts[name] + probe_counts[name]
                       + bf16_counts[name] + prec_counts[name]
-                      + loop_counts[name]),
+                      + loop_counts[name] + alt_counts.get(name, 0)),
             max_abs_err=max(x["max_abs_err"] for x in on_path),
             max_abs_err_all_shapes=max(x["max_abs_err"] for x in r),
             ms=total("ms"), plain_ms=total("plain_ms"),
@@ -2803,7 +3382,8 @@ def run() -> int:
         stem_vjp=stem_vjp,
         serve=serve, end_to_end=e2e, train=train, sformer=sformer,
         probes=probes, serve_bf16=serve_bf16,
-        train_precision=train_precision, train_loop=train_loop), indent=1))
+        train_precision=train_precision, train_loop=train_loop,
+        alt_objectives=alt), indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,14 @@ PoseNet3D -> soft-argmax joints, served through
 of ``data/``, evaluated by ``eval/harness.py``, and driven from the
 command line by ``python -m hiddenpose_tpu_torch.cli.train`` / ``.test``;
 and the transformer variant, video -> NlosPoseSformer -> SimDR logits ->
-joints (``models/sformer.py``).  Imports torch, never jax;
+joints (``models/sformer.py``); the other training objectives
+(``train/alt_steps.py``), NlosPose's ``posenet2d`` backbone and TokenPose.  Imports torch, never jax;
 the hot kernels are hand-written CUDA under ``csrc/``.
 
-Every entry point that takes a ``device`` defaults to the GPU (``"cuda"``)
-and raises where there is none; it runs on the CPU only when the caller
-asks for it (``device="cpu"``), as the tests do.
+Every entry point that takes a ``device`` defaults to the GPU (``"cuda"``,
+or ``None``, which means the same) and raises where there is none; it
+runs on the CPU only when the caller asks for it (``device="cpu"``), as
+the tests do.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises if it names a GPU and the
-    host has none, so that no entry point carries on on the CPU unasked."""
-    dev = torch.device(device)
+    """``device`` as a ``torch.device`` (``None`` is the GPU); raises if it
+    names a GPU and the host has none, so that no entry point carries on
+    on the CPU unasked."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={str(device)!r} but torch.cuda.is_available() is False: "

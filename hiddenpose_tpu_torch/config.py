@@ -31,12 +31,15 @@ class ModelConfig:
     mode: str = "lct"  # 'lct' | 'bp'
     material: str = "diffuse"  # 'diffuse' | 'specular'
     num_joints: int = 24
-    backbone: str = "posenet3d_50"
+    backbone: str = "posenet3d_50"  # or 'posenet2d'
     # Transformer family (``models/sformer.py::sformer_from_config``)
     patch_feature_dim: int = 256
     depth: int = 8
     heads: int = 8
     dim_head: int = 32
+    # carried for the JAX package's config, which no module reads
+    attn_dropout: float = 0.0
+    ff_dropout: float = 0.0
     rotary_emb: bool = True
     out_dim: int = (64 * 2 + 128) * 2
     num_frames: int = 16

@@ -10,6 +10,13 @@ Port of ``hiddenpose_tpu/models/nlospose.py``:
       -> PoseNet3D on (feature + refine)
       -> (heatmaps (B, J, Z, Y, X), refine (B, 1, T, H, W))
 
+or, with ``backbone="posenet2d"``, ``visible_net`` (``models/posenet2d.py``)
+flattens ``feature + refine`` to 2D channels and ``ResPoseNet2D`` emits
+``num_joints * heatmap_size[0]`` depth-sliced maps, reshaped to heatmaps
+(B, J, heatmap_size[0], H / 4, W / 4): at t128 (B, 24, 64, 32, 32), the
+JAX package's shape.  That backbone has no kernel; FeatureExtraction and
+the UNet run theirs as in the 3D model.
+
 The external API keeps the JAX package's NCDHW conventions.  In eval mode
 with grad mode off (serving) the kernels run with their fused epilogues;
 in training they run through their ``autograd.Function``s (see
@@ -40,6 +47,7 @@ from hiddenpose_tpu_torch.models.blocks import (
     StencilConv3,
     corner_mask,
 )
+from hiddenpose_tpu_torch.models.posenet2d import ResPoseNet2D, visible_net
 from hiddenpose_tpu_torch.models.posenet3d import PoseNet3D
 from hiddenpose_tpu_torch.models.unet3d import UNet3d
 from hiddenpose_tpu_torch.ops.lct import LCTParams, lct_apply, make_lct_params
@@ -49,16 +57,24 @@ from hiddenpose_tpu_torch.ops.normalize import normalize_feature
 class NlosPose(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.backbone != "posenet3d_50":
+        if cfg.backbone not in ("posenet3d_50", "posenet2d"):
+            raise NotImplementedError(f"backbone {cfg.backbone!r}")
+        if cfg.backbone == "posenet2d" and cfg.compute_dtype != "float32":
             raise NotImplementedError(
-                f"backbone {cfg.backbone!r}: only posenet3d_50 is ported")
+                "the posenet2d backbone is ported in float32 only")
         self.cfg = cfg
         self.compute_dtype = dt = as_dtype(cfg.compute_dtype)
         self.feature_extraction = FeatureExtraction(
             basedim=cfg.basedim, in_channels=cfg.in_channels, dtype=dt)
         self.autoencoder = UNet3d(in_channels=cfg.in_channels, n_channels=4,
                                   dtype=dt)
-        self.pose_net = PoseNet3D(num_joints=cfg.num_joints, dtype=dt)
+        if cfg.backbone == "posenet2d":
+            # visible_net's values and depths: 2 x 4 channels a channel
+            self.pose_net = ResPoseNet2D(in_channels=8 * cfg.in_channels,
+                                         num_joints=cfg.num_joints,
+                                         depth_dim=cfg.heatmap_size[0])
+        else:
+            self.pose_net = PoseNet3D(num_joints=cfg.num_joints, dtype=dt)
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route every kernelled op to its CUDA kernel (True, the default)
@@ -77,7 +93,13 @@ class NlosPose(nn.Module):
                         batch_chunk=self.cfg.lct_batch_chunk)
         feature = normalize_feature(vol.reshape(b, ch, *vol.shape[1:]))
         refine = self.autoencoder(feature)
-        heatmaps = self.pose_net(feature + refine)
+        if self.cfg.backbone == "posenet2d":
+            hm2d = self.pose_net(visible_net(feature + refine))
+            bh, _, hh, ww = hm2d.shape
+            heatmaps = hm2d.reshape(bh, self.cfg.num_joints,
+                                    self.cfg.heatmap_size[0], hh, ww)
+        else:
+            heatmaps = self.pose_net(feature + refine)
         return heatmaps.contiguous(), refine
 
 
@@ -86,14 +108,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from an explicit generator, with the JAX package's
     initialisers: lecun-normal 3^3 stencil and UNet convs with zero bias,
     the corner mask, kaiming-normal (fan_out) PoseNet convs,
-    normal(0.001) deconvs, unit/zero norms and BN statistics."""
+    normal(0.001) deconvs and 2D-backbone convs (zero bias), unit/zero
+    norms and BN statistics."""
 
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
     for name, m in model.named_modules():
-        if isinstance(m, nn.ConvTranspose3d):
+        if isinstance(m, (nn.ConvTranspose3d, nn.Conv2d,
+                          nn.ConvTranspose2d)):
             normal_(m.weight, 0.001)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Conv3d):
             fan_in = m.weight[0].numel()
             fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
@@ -103,10 +129,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 normal_(m.weight, (2.0 / fan_out) ** 0.5)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.BatchNorm3d, nn.GroupNorm)):
+        elif isinstance(m, (nn.BatchNorm3d, nn.BatchNorm2d, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
-            if isinstance(m, nn.BatchNorm3d):
+            if isinstance(m, (nn.BatchNorm3d, nn.BatchNorm2d)):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
         elif isinstance(m, FeatureExtraction):
@@ -131,7 +157,8 @@ def build_nlospose(cfg: ModelConfig, device="cuda",
         torch.backends.cuda.matmul.allow_tf32 = False
     model = NlosPose(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
-    model.pose_net.to(memory_format=torch.channels_last_3d)
+    if cfg.backbone == "posenet3d_50":
+        model.pose_net.to(memory_format=torch.channels_last_3d)
     model = model.to(device).eval()
     lct = make_lct_params(
         image_size=cfg.image_size[0], time_size=cfg.time_size,

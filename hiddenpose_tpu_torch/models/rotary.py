@@ -42,8 +42,13 @@ def _duplicate_pairs(t: np.ndarray) -> np.ndarray:
 
 def _tables(sin: np.ndarray, cos: np.ndarray, device
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (torch.from_numpy(sin.astype(np.float32)).to(device),
-            torch.from_numpy(cos.astype(np.float32)).to(device))
+    # made outside inference mode: a table first built by a serving forward
+    # (``serve_video`` runs under ``torch.inference_mode``) is cached and
+    # then also read by forwards that autograd records, which refuse
+    # inference tensors
+    with torch.inference_mode(False):
+        return (torch.from_numpy(sin.astype(np.float32)).to(device),
+                torch.from_numpy(cos.astype(np.float32)).to(device))
 
 
 @functools.lru_cache(maxsize=None)

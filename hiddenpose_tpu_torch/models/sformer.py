@@ -311,7 +311,8 @@ def init_transformer_weights(model: nn.Module,
                              generator: torch.Generator) -> None:
     """Random weights from an explicit generator, with flax's
     initialisers: lecun-normal Linear weights with zero bias, unit/zero
-    LayerNorms, truncated-normal(0.02) joint tokens, normal(0.02) position
+    LayerNorms, truncated-normal(0.02) joint tokens (TokenPose's keypoint
+    tokens and learnable position table too), normal(0.02) position
     embedding, normal(1) cls token."""
 
     def normal_(t, std):
@@ -326,7 +327,7 @@ def init_transformer_weights(model: nn.Module,
             m.weight.fill_(1.0)
             m.bias.zero_()
     for name, p in model.named_parameters(recurse=False):
-        if name == "joints_token":
+        if name in ("joints_token", "keypoint_token", "pos_embedding"):
             normal_(p, 0.02)
             p.clamp_(-0.04, 0.04)
         elif name == "pos_emb":

@@ -3,7 +3,8 @@
 Port of ``hiddenpose_tpu/ops/softargmax.py``.  ``softmax_integral``: a
 global softmax over each joint's flattened heatmap, then the expected
 coordinate along each axis from the marginals.  Like the reference, it
-does not re-centre: coordinates are in heatmap-voxel units 0..dim.
+does not re-centre: coordinates are in heatmap-voxel units 0..dim
+(``softmax_integral_normalized`` is the re-centred variant).
 ``simdr_decode``: the expected bin of each axis's classification logits,
 the decoding of the Sformer's head.
 """
@@ -47,3 +48,17 @@ def simdr_decode(logits_xyz: torch.Tensor,
     bins = torch.arange(logits_xyz.shape[-1], dtype=torch.float32,
                         device=logits_xyz.device)
     return (probs * bins).sum(dim=-1) / split_ratio
+
+
+def softmax_integral_normalized(heatmaps: torch.Tensor,
+                                num_joints: int) -> torch.Tensor:
+    """``softmax_integral`` re-centred to [-0.5, 0.5]: each coordinate
+    over its axis's extent, minus 0.5 (the reference's older loss copy;
+    do not mix with the live joint scaling).  (B, J, Z, Y, X) -> (B, J*3)."""
+    z_dim, y_dim, x_dim = heatmaps.shape[-3:]
+    coords = softmax_integral(heatmaps, num_joints)
+    coords = coords.reshape(coords.shape[0], num_joints, 3)
+    dims = torch.tensor([x_dim, y_dim, z_dim], dtype=coords.dtype,
+                        device=coords.device)
+    coords = coords / dims - 0.5
+    return coords.reshape(coords.shape[0], num_joints * 3)

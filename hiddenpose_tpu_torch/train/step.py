@@ -50,12 +50,15 @@ Batch = Dict[str, torch.Tensor]
 
 
 @contextlib.contextmanager
-def precision_scope(model: NlosPose, precision: str):
+def precision_scope(model, precision: str):
     """For the duration of the block: ``precision`` ambient for the conv2
     routes (``conv3mxu.matmul_precision``) and, for a model on a GPU, TF32
     in cuDNN and cuBLAS on for 'default' and 'high', off for 'highest';
-    both restored on exit."""
-    cuda = next(model.parameters()).is_cuda
+    both restored on exit.  ``model``: any module, or an optimizer (whose
+    parameters say where the model is)."""
+    params = (model.parameters() if isinstance(model, torch.nn.Module)
+              else (p for g in model.param_groups for p in g["params"]))
+    cuda = next(params).is_cuda
     # the per-backend flags only: the global float32 matmul precision
     # raises in some PyTorch versions once the two backends differ
     saved = (torch.backends.cuda.matmul.allow_tf32,

@@ -27,6 +27,7 @@ from hiddenpose_tpu_torch.eval.harness import evaluate
 from hiddenpose_tpu_torch.models.nlospose import build_nlospose
 from hiddenpose_tpu_torch.models.sformer import build_sformer
 from hiddenpose_tpu_torch.models.timesformer import build_timesformer
+from hiddenpose_tpu_torch.models.tokenpose import build_tokenpose
 from hiddenpose_tpu_torch.ops.lct import make_lct_params
 from hiddenpose_tpu_torch.serve import InferenceServer
 from hiddenpose_tpu_torch.train.loop import train
@@ -35,6 +36,8 @@ from hiddenpose_tpu_torch.train.state import TrainState
 CFG = Config().tiny(16)
 TS_KW = dict(dim=16, num_frames=2, image_size=8, patch_size=4, channels=1,
              depth=1, heads=2, dim_head=8)
+TP_KW = dict(feature_size=(8, 8), patch_size=(4, 4), num_keypoints=2, dim=8,
+             channels=2, depth=1, heads=2, heatmap_size=(4, 4))
 
 
 def _server(**kw):
@@ -85,6 +88,11 @@ def _cli_test(**kw):
 ENTRY_POINTS = {
     "build_nlospose": lambda **kw: next(
         build_nlospose(CFG.model, **kw)[0].parameters()).device,
+    "build_nlospose posenet2d": lambda **kw: next(build_nlospose(
+        dataclasses.replace(CFG.model, backbone="posenet2d"),
+        **kw)[0].parameters()).device,
+    "build_tokenpose": lambda **kw: next(
+        build_tokenpose(**TP_KW, **kw).parameters()).device,
     "InferenceServer": _server,
     "make_lct_params": lambda **kw: make_lct_params(16, 16, 0.04,
                                                     **kw).mtx.device,
@@ -121,3 +129,7 @@ def test_resolve_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             resolve_device("cuda:0")
+        with pytest.raises(RuntimeError, match="is_available"):
+            resolve_device(None)  # None is the GPU
+    else:
+        assert resolve_device(None).type == "cuda"

@@ -171,11 +171,22 @@ def test_unet_matches_jax():
 
 
 def test_unsupported_backbone_raises():
+    """A backbone the port does not have raises, and so does the
+    ``posenet2d`` backbone in bfloat16 (ported in float32 only); the
+    ``posenet2d`` backbone itself builds since it was ported."""
     import dataclasses
 
-    cfg = dataclasses.replace(Config().tiny(16).model, backbone="posenet2d")
+    m = Config().tiny(16).model
     with pytest.raises(NotImplementedError):
-        build_nlospose(cfg, device="cpu")
+        build_nlospose(dataclasses.replace(m, backbone="resnet18"),
+                       device="cpu")
+    with pytest.raises(NotImplementedError):
+        build_nlospose(dataclasses.replace(m, backbone="posenet2d",
+                                           compute_dtype="bfloat16"),
+                       device="cpu")
+    model, _ = build_nlospose(dataclasses.replace(m, backbone="posenet2d"),
+                              device="cpu")
+    assert type(model.pose_net).__name__ == "ResPoseNet2D"
 
 
 # ------------------------------------------------- the UNet's output conv

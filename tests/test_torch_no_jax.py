@@ -24,6 +24,7 @@ MODULES = [
     "hiddenpose_tpu_torch.data.preprocess",
     "hiddenpose_tpu_torch.data.dataset",
     "hiddenpose_tpu_torch.data.device_prefetch",
+    "hiddenpose_tpu_torch.data.targets",
     "hiddenpose_tpu_torch.ops.psf",
     "hiddenpose_tpu_torch.ops.lct",
     "hiddenpose_tpu_torch.ops.normalize",
@@ -40,6 +41,8 @@ MODULES = [
     "hiddenpose_tpu_torch.models.blocks",
     "hiddenpose_tpu_torch.models.unet3d",
     "hiddenpose_tpu_torch.models.posenet3d",
+    "hiddenpose_tpu_torch.models.posenet2d",
+    "hiddenpose_tpu_torch.models.tokenpose",
     "hiddenpose_tpu_torch.models.nlospose",
     "hiddenpose_tpu_torch.models.rotary",
     "hiddenpose_tpu_torch.models.sformer",
@@ -47,6 +50,7 @@ MODULES = [
     "hiddenpose_tpu_torch.train.optim",
     "hiddenpose_tpu_torch.train.state",
     "hiddenpose_tpu_torch.train.step",
+    "hiddenpose_tpu_torch.train.alt_steps",
     "hiddenpose_tpu_torch.train.checkpoint",
     "hiddenpose_tpu_torch.train.pretrain",
     "hiddenpose_tpu_torch.train.loop",
@@ -93,7 +97,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("where", ["hiddenpose_tpu_torch", "chip_smoke.py",
                                    "scripts/torch_stage_profile.py",
-                                   "scripts/torch_diag_stem_paired.py"])
+                                   "scripts/torch_diag_stem_paired.py",
+                                   "scripts/torch_time_attention_spread.py"])
 def test_no_import_statement_names_jax(where):
     """Also the imports inside functions, which a module import does not
     run: none names jax, flax or the JAX package."""
