@@ -116,7 +116,27 @@ lines:
    (TRAIN_PER_STEP launches), kernels vs plain within TRAIN_*, its loss
    equal to ``make_train_step``'s joint loss; (d) TokenPose at its
    published config: the 2D-heatmap step on the GPU (3 timed) against
-   the same step on the CPU within TOKENPOSE_TOL (library ops only).
+   the same step on the CPU within TOKENPOSE_TOL (library ops only);
+13. models: (a) the SimDR step on phase 7's Sformer in the bf16 mode: 3
+   steps at 'highest' and one at 'default', ms, peak memory, K9 launched
+   16 times a step; K9 against its order in plain PyTorch (equal outputs
+   at BF16_K9_ORDER_EQUAL of the elements); one step with kernels vs one whose plain attention rounds where
+   K9 rounds, within BF16_SIMDR_SPREAD x that plain step's own spread
+   under three 1e-7 moves of the video (the step through ``attend_ref``
+   printed beside it); (b) ``PoseNet3D(block="basic", layers=(2, 2, 2, 2))`` at full
+   width on a t128 b2 volume, peaked weights: the f32 and bf16 serving
+   forwards kernels vs plain within phase 5's limits and phase 9's
+   heatmap limit once the joints spread, the bf16 joints within
+   BASIC_BF16_JOINTS x the plain bf16 forward's distance from f32 (K2, K3
+   and K4 10 times a forward; their bf16 forms),
+   one train forward + backward at 'highest' with a shared cotangent
+   within phase 6's TRAIN_* (K3, K7, K4 and K4-dx 10 times each), and one
+   forward with the library stem (``conv1_t_stride=2``, ``no_max_pool``);
+   (c) DeepVoxels at the reference's size (``build_deepvoxels()``: a (1, 1,
+   512, 256, 256) capture -> (1, 17, 200, 128, 128)): ms, peak memory, and
+   the forward against the same forward in float64 on the card; (d)
+   ``MultiViewResampler`` and ``wave_convolve`` on its output, card vs
+   CPU.  ``python3 chip_smoke.py --models`` runs phases 1, 2 and 13 alone.
 
 Phase 3 also times, beside each kernel, the one PyTorch call that computes
 the same function where there is one (``library_ms``: a yardstick, used
@@ -3227,11 +3247,542 @@ def phase_alt_objectives(dev, smi):
         t0 = time.perf_counter()
         out[name], c = fn(dev, smi)
         out[name]["seconds"] = time.perf_counter() - t0
-        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["tokenpose"] = alt_tokenpose(dev, smi)
     out["tokenpose"]["seconds"] = time.perf_counter() - t0
+    return out, counts
+
+
+# Phase 13: the models and ops ported last.  13a, the SimDR step on phase
+# 7's Sformer in the bf16 mode (bf16 Dense layers, f32 parameters), one
+# step with K9's forward vs one whose attention forward rounds where K9
+# rounds (``attend_online_ref`` on K9's own chunks: 64-key tiles, a
+# running max, the unnormalised probability rounded to bf16; both through
+# AttendFused, whose backward is the plain attention's gradient).  A bf16
+# step rounds chaotically (one bf16 rounding that flips moves every later
+# one), so kernels vs that plain step is held to BF16_SIMDR_SPREAD times
+# the plain step's own spread: the largest over three moves of the video
+# by BF16_SIMDR_MOVE (relative, seeds BF16_SIMDR_SEEDS), in the loss and in
+# the gradients over all (relative L2), as 12b holds its step.  Each
+# attention shape's first call is also held against K9 directly: equal
+# bf16 outputs at BF16_K9_ORDER_EQUAL of the elements at least (float32
+# rounding flips a probability's bf16 rounding now and then, which moves
+# an output by up to 2^-8 of that key's |v| where the key dominates:
+# 1.56e-2 at 0.055% of the grouped call's outputs, read where a first form
+# of this check, one output ulp, failed; the joint-token read is equal
+# throughout; attend_ref's outputs equal K9's at 80% and 95%; NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md).  The step through ``attend_ref``, which
+# rounds the normalised probability, is printed beside it and not held:
+# its first readings against K9 were 2.79e-4 (loss) and 1.19e-2
+# (gradients), against a spread of 1.09e-4 and 1.13e-2 at a 1e-7 move.
+BF16_K9_ORDER_EQUAL = 0.99
+BF16_SIMDR_MOVE = 1e-7
+BF16_SIMDR_SEEDS = (1, 2, 3)
+BF16_SIMDR_SPREAD = 2.0
+# 13b, PoseNet3D(block="basic", layers=(2, 2, 2, 2)), ResNet-18's layout at
+# full width: launches of one serving forward at t128 b2 (K4 on both convs
+# of every stride-1 block the JAX router admits: 4 at c64, 3 at c128, 3 at
+# c256; c512 is past the router's weight budget), of the bf16 model's, and
+# of one train forward + backward at 'highest'.
+BASIC_LAYERS = (2, 2, 2, 2)
+BASIC_K4_PER_FORWARD = 10
+# the joints must spread by this much (voxels, the smallest axis's std
+# over the 24 joints) for a comparison of joints to mean anything
+BASIC_JOINT_SPREAD = 1.0
+# The bf16 forward, kernels vs plain: the heatmaps within phase 9's
+# BF16_KP_HM_RMS_TOL; the joints within BASIC_BF16_JOINTS x how far the
+# plain bf16 forward's joints lie from the f32 forward's, read in the run:
+# two independent bf16 roundings, each that far from the f32 forward, lie
+# about sqrt(2) times that far from each other.  Phase 9's joint limit
+# (1.7 voxels) was set on NlosPose's heatmaps; this net's joints, on the
+# volumes NlosPose feeds it, move 2.41 voxels (mean) under the plain
+# path's bf16 rounding alone (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+BASIC_BF16_JOINTS = 2 ** 0.5
+BASIC_SERVE = {"stem_conv_raw": 1, "maxpool3d_k3s2p1": 1,
+               "conv3_mxu": BASIC_K4_PER_FORWARD}
+BASIC_SERVE_BF16 = {"stem_conv_raw_bf16": 1, "maxpool3d_k3s2p1_bf16": 1,
+                    "conv3_mxu_bf16": BASIC_K4_PER_FORWARD}
+BASIC_TRAIN = {"maxpool3d_k3s2p1": 1, "maxpool3d_k3s2p1_vjp": 1,
+               "conv3_mxu": BASIC_K4_PER_FORWARD,
+               "conv3_mxu_dx": BASIC_K4_PER_FORWARD}
+# 13c, DeepVoxels at the reference's size against the same forward in
+# float64 on the card (``dv_forward64``): max error over the output's max
+# (f32 convs and 512 x 256 x 256 FFTs, then two normalisations; 1e-5 of
+# the peak is the f32 LCT's own distance from JAX's, tests/test_torch_lct).
+DV_F64_TOL = 1e-4
+DV_CAPTURE = (512, 256)  # time bins, wall points a side: the defaults
+# 13d, the resampler and wave ops on DeepVoxels' output, card vs CPU: max
+# error over the output's max (the same formulas, FMA on the card)
+DV_OPS_TOL = 1e-5
+
+
+def _set_kernels(model, flag: bool) -> None:
+    for m in model.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = bool(flag)
+
+
+def _counted(fn):
+    """Run ``fn()`` with every launch count from 0: its result and the
+    counts of the kernels it launched."""
+    from hiddenpose_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in K.launch_counts().items() if v}
+
+
+def bf16_simdr(dev, smi):
+    """13a: the SimDR step on the full-width Sformer in the bf16 mode."""
+    from hiddenpose_tpu_torch.config import TrainConfig, t128_config
+    from hiddenpose_tpu_torch.models.sformer import sformer_from_config
+    from hiddenpose_tpu_torch.ops.kernels import attn as attn_module
+    from hiddenpose_tpu_torch.train.alt_steps import make_simdr_step
+    from hiddenpose_tpu_torch.train.optim import make_optimizer
+
+    cfg = t128_config().model
+    weights = sformer_weights(cfg)
+    model = sformer_from_config(cfg, dtype="bfloat16").to(dev)
+    model.load_state_dict(weights)
+    k = cfg.out_dim // 4
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"video": sformer_videos(dev, seeds=(0,))[0],
+             "target_bins": torch.randint(0, k, (1, cfg.num_joints, 3),
+                                          device=dev, generator=g),
+             "target_weight": torch.ones(1, cfg.num_joints, device=dev)}
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts, steps = {}, []
+    for precision, n in (("highest", 3), ("default", 1)):
+        step = make_simdr_step(model, matmul_precision=precision)
+        opt = make_optimizer(TrainConfig(), model.parameters())[0]
+        for _ in range(n):
+            (ms, met), c = _counted(lambda: _event_ms(lambda: step(opt,
+                                                                   batch)))
+            for name, v in c.items():
+                counts[name] = counts.get(name, 0) + v
+            steps.append(dict(precision=precision, ms=ms,
+                              loss=met["loss"].item(), launches=c))
+            log(f"[13a bf16 simdr] step at {precision!r}: loss "
+                f"{steps[-1]['loss']:.6g} in {ms:.2f} ms, launches {c}")
+            if c != {"attend": SIMDR_LAUNCHES_PER_STEP}:
+                raise RuntimeError(f"13a: launch counts {c}, expected "
+                                   f"{SIMDR_LAUNCHES_PER_STEP} of attend")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(s_["loss"]) for s_ in steps):
+        raise RuntimeError("13a: a bf16 SimDR loss is not finite")
+    log(f"[13a bf16 simdr] 'highest' steps 2 and 3 {steps[1]['ms']:.2f} / "
+        f"{steps[2]['ms']:.2f} ms, 'default' {steps[3]['ms']:.2f} ms; peak "
+        f"memory {peak / 2**30:.3f} GiB  [{smi}]")
+
+    step = make_simdr_step(model)
+    video = batch["video"]
+    k9 = attn_module.attend
+    captured = {}
+
+    def kernel_order(q, k, v):
+        """The plain attention in K9's order, on K9's chunks; the first
+        call of each shape keeps its inputs, to hold K9 against it."""
+        b_, lq, dh = q.shape
+        lk = k.shape[1]
+        key = (tuple(q.shape), lk)
+        if key not in captured:
+            captured[key] = (q.clone(), k.clone(), v.clone())
+        return attn_module.attend_online_ref(
+            q, k, v, attn_module.attend_chunk(b_, lq, lk, dh))
+
+    def against_k9(q, k, v):
+        """K9 (unpatched: its launch count is a global of its module)
+        against its order in plain PyTorch, and against attend_ref."""
+        b_, lq, dh = q.shape
+        with torch.no_grad():
+            ker = k9(q, k, v).float()
+            want = attn_module.attend_online_ref(
+                q, k, v, attn_module.attend_chunk(b_, lq, k.shape[1], dh))
+            want = want.float()
+            return dict(
+                equal=(ker == want).float().mean().item(),
+                max_abs=(ker - want).abs().max().item(),
+                equal_vs_attend_ref=(attn_module.attend_ref(q, k, v).float()
+                                     == ker).float().mean().item())
+
+    def one(fwd, seed=None):
+        """One step from the weights, the attention forward by ``fwd``
+        inside ``AttendFused``, whose backward recomputes the plain
+        attention either way (the plain attention under autograd keeps
+        every layer's f32 scores and probabilities, 9 GB a layer, past
+        the card's 80 GB in this mode); the video moved by
+        BF16_SIMDR_MOVE in a pattern of ``seed``'s."""
+        model.load_state_dict(weights)
+        b = batch
+        if seed is not None:
+            noise = torch.from_numpy(np.random.RandomState(seed).randn(
+                *video.shape).astype(np.float32)).to(dev)
+            b = dict(batch, video=video * (1 + BF16_SIMDR_MOVE * noise))
+        with deterministic(warn_only=True), \
+                mock.patch.object(attn_module, "attend", fwd):
+            return _param_step(model, lambda o: step(o, b))
+
+    plain = one(kernel_order)
+    direct = {key: against_k9(*qkv) for key, qkv in captured.items()}
+    captured.clear()
+    for (shape, lk), r in direct.items():
+        log(f"[13a bf16 simdr] K9 vs its order in plain PyTorch, q {shape} "
+            f"Lk {lk}: equal at {r['equal']:.6f} of the outputs (limit "
+            f"{BF16_K9_ORDER_EQUAL}), max abs diff {r['max_abs']:.3e}; K9 "
+            f"equal to attend_ref at {r['equal_vs_attend_ref']:.6f}")
+    kern = one(k9)
+    vs = _param_readings(kern, plain)
+    vs_ref = _param_readings(kern, one(attn_module.attend_ref))
+    spreads = {s_: _param_readings(one(kernel_order, s_), plain)
+               for s_ in BF16_SIMDR_SEEDS}
+    for s_, r in spreads.items():
+        log(f"[13a bf16 simdr] the plain step on the video moved by "
+            f"{BF16_SIMDR_MOVE:g} (seed {s_}): loss rel {r['loss_rel']:.3e}, "
+            f"gradients rel L2 {r['grad_rel_l2_all']:.3e}, worst "
+            f"{r['grad_rel_l2_worst']}, signs {r['sign_agree']:.4f}")
+    ref = {k: max(r[k] for r in spreads.values())
+           for k in ("loss_rel", "grad_rel_l2_all")}
+    log(f"[13a bf16 simdr] kernels vs plain in K9's order: loss rel "
+        f"{vs['loss_rel']:.3e} (limit "
+        f"{BF16_SIMDR_SPREAD * ref['loss_rel']:.3e}), gradients rel L2 "
+        f"{vs['grad_rel_l2_all']:.3e} (limit "
+        f"{BF16_SIMDR_SPREAD * ref['grad_rel_l2_all']:.3e}), worst "
+        f"{vs['grad_rel_l2_worst']}, signs {vs['sign_agree']:.4f}, new "
+        f"params max abs err where the gradients agree "
+        f"{vs['param_max_abs']:.3e}; kernels vs the attend_ref step (not "
+        f"held): loss rel {vs_ref['loss_rel']:.3e}, gradients rel L2 "
+        f"{vs_ref['grad_rel_l2_all']:.3e}")
+    if not all(r["equal"] >= BF16_K9_ORDER_EQUAL for r in direct.values()):
+        raise RuntimeError("13a: K9 does not round where its order in "
+                           "plain PyTorch rounds")
+    if not (vs["loss_rel"] <= BF16_SIMDR_SPREAD * ref["loss_rel"]
+            and vs["grad_rel_l2_all"]
+            <= BF16_SIMDR_SPREAD * ref["grad_rel_l2_all"]):
+        raise RuntimeError("13a: the bf16 SimDR step's kernels and plain "
+                           "versions disagree beyond the step's own spread")
+    return dict(steps=steps, peak_memory_bytes=peak, kernels_vs_plain=vs,
+                kernels_vs_attend_ref_step=vs_ref,
+                k9_vs_its_order={f"{sh} Lk {lk}": r
+                                 for (sh, lk), r in direct.items()},
+                plain_spread={str(s_): r for s_, r in spreads.items()}), \
+        counts
+
+
+def _joints(hm):
+    from hiddenpose_tpu_torch.ops.softargmax import softmax_integral
+
+    return softmax_integral(hm.float(), hm.shape[1])
+
+
+def posenet_inputs(dev):
+    """What NlosPose feeds its PoseNet3D, feature + refinement (B, 1, 128,
+    128, 128), for phase 4's first B captures through the f32 model on
+    the peaked weights of phase 4."""
+    from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+
+    cfg, caps = t128_captures(B)
+    model, lct = build_nlospose(cfg.model, device=dev)
+    model.load_state_dict(t128_weights(cfg))
+    seen = {}
+    hook = model.pose_net.register_forward_pre_hook(
+        lambda m, args: seen.__setitem__("x", args[0]))
+    with torch.inference_mode():
+        model(torch.from_numpy(np.stack(caps)).to(dev), lct)
+    hook.remove()
+    x = seen["x"].clone().contiguous()
+    del model, seen
+    torch.cuda.empty_cache()
+    return x
+
+
+def basic_posenet(dev, smi):
+    """13b: PoseNet3D(block='basic', layers=(2, 2, 2, 2)) at full width on
+    a t128 b2 volume, peaked weights."""
+    from hiddenpose_tpu_torch.models.posenet3d import (
+        PoseNet3D,
+        build_posenet3d,
+    )
+    from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+
+    kw = dict(block="basic", layers=BASIC_LAYERS)
+    with torch.device("meta"):
+        template = PoseNet3D(**kw)
+    weights = peaked_state_dict(template, seed=1)
+
+    def build(dtype=torch.float32, **more):
+        m = build_posenet3d(device=dev, dtype=dtype, **kw, **more)
+        m.load_state_dict(weights)
+        return m
+
+    x = posenet_inputs(dev)
+    out, counts = {}, {}
+
+    def add(c):
+        for name, v in c.items():
+            counts[name] = counts.get(name, 0) + v
+
+    def serve(model, flag):
+        _set_kernels(model, flag)
+        with torch.inference_mode():
+            model(x)  # cuDNN's plans
+            (hm, c) = _counted(lambda: model(x))
+            ms = cuda_ms(lambda: model(x), iters=3)
+            with deterministic():
+                hm = model(x).float()
+        _set_kernels(model, True)
+        return hm, c, ms
+
+    # f32 serving, kernels vs plain
+    model = build()
+    hk, ck, ms_k = serve(model, True)
+    hp, _, ms_p = serve(model, False)
+    add(ck)
+    jk, jp = _joints(hk), _joints(hp)
+    hm_rel = ((hk - hp).abs().max() / hp.abs().max()).item()
+    j_abs = (jk - jp).abs().max().item()
+    spread = float(jp.std(dim=1).min())
+    log(f"[13b basic] f32 forward b{B}: kernels {ms_k:.2f} ms, plain "
+        f"{ms_p:.2f} ms; launches {ck}; heatmaps max rel err {hm_rel:.3e} "
+        f"({E2E_HM_TOL}), joints max abs err {j_abs:.3e} voxels "
+        f"({E2E_JOINT_TOL}); joints' spread (std over joints, smallest "
+        f"axis) {spread:.2f} voxels; heatmaps {tuple(hp.shape)} in "
+        f"[{hp.min().item():.3g}, {hp.max().item():.3g}]  [{smi}]")
+    out["f32"] = dict(ms=ms_k, plain_ms=ms_p, launches=ck,
+                      hm_max_rel_err=hm_rel, joints_max_abs_err=j_abs,
+                      joint_spread=spread)
+    if ck != BASIC_SERVE:
+        raise RuntimeError(f"13b: f32 launches {ck}, expected {BASIC_SERVE}")
+    if spread < BASIC_JOINT_SPREAD:
+        raise RuntimeError("13b: the joints do not spread; the check "
+                           "cannot tell a wrong model")
+    if not (torch.isfinite(hk).all() and hm_rel <= E2E_HM_TOL
+            and j_abs <= E2E_JOINT_TOL):
+        raise RuntimeError("13b: f32 kernels and plain versions disagree")
+
+    # bf16 serving, kernels vs plain (phase 9's limits), and vs f32
+    m16 = build(torch.bfloat16)
+    bk, cb, ms_bk = serve(m16, True)
+    bp, _, ms_bp = serve(m16, False)
+    add(cb)
+    del m16
+
+    def rms(t):
+        return float(t.double().pow(2).mean().sqrt())
+
+    kp_hm = rms(bk - bp) / rms(bp)
+    kp_j = float((_joints(bk) - _joints(bp)).norm(dim=-1).mean())
+    f_hm = rms(bk - hp) / rms(hp)
+    f_j = float((_joints(bk) - jp).norm(dim=-1).mean())
+    pf_hm = rms(bp - hp) / rms(hp)
+    pf_j = float((_joints(bp) - jp).norm(dim=-1).mean())
+    log(f"[13b basic] bf16 forward b{B}: kernels {ms_bk:.2f} ms, plain "
+        f"{ms_bp:.2f} ms; launches {cb}; kernels vs plain heatmap RMS "
+        f"{kp_hm:.3e} ({BF16_KP_HM_RMS_TOL}), joints mean {kp_j:.3f} voxels "
+        f"(limit {BASIC_BF16_JOINTS * pf_j:.3f}); kernels vs f32 "
+        f"{f_hm:.3e}, {f_j:.3f}; plain vs f32 {pf_hm:.3e}, {pf_j:.3f}")
+    out["bf16"] = dict(ms=ms_bk, plain_ms=ms_bp, launches=cb,
+                       hm_rms_vs_plain=kp_hm, joints_mean_vs_plain=kp_j,
+                       hm_rms_vs_f32=f_hm, joints_mean_vs_f32=f_j,
+                       plain_hm_rms_vs_f32=pf_hm,
+                       plain_joints_mean_vs_f32=pf_j)
+    if cb != BASIC_SERVE_BF16:
+        raise RuntimeError(f"13b: bf16 launches {cb}, expected "
+                           f"{BASIC_SERVE_BF16}")
+    if not (torch.isfinite(bk).all() and kp_hm <= BF16_KP_HM_RMS_TOL
+            and kp_j <= BASIC_BF16_JOINTS * pf_j):
+        raise RuntimeError("13b: bf16 kernels and plain versions disagree")
+
+    # one train forward + backward at 'highest', a shared cotangent
+    g = torch.Generator(device=dev).manual_seed(2)
+    cot = torch.randn(hp.shape, device=dev, generator=g)
+
+    def train_once(flag):
+        model.load_state_dict(weights)
+        _set_kernels(model, flag)
+        model.train().zero_grad(set_to_none=True)
+        with deterministic(warn_only=True):
+            y = model(x)
+            (y * cot).sum().backward()
+        torch.cuda.synchronize()
+        _set_kernels(model, True)
+        return dict(y=y.detach().float(),
+                    grads={n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()},
+                    stats={n: b.detach().clone()
+                           for n, b in model.named_buffers()
+                           if b.is_floating_point()})
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    tk, ct = _counted(lambda: train_once(True))
+    peak = torch.cuda.max_memory_allocated(dev)
+    add(ct)
+    tp = train_once(False)
+    model.train()
+    ms_t, _ = _event_ms(lambda: (model(x) * cot).sum().backward())
+    grad_l2 = _grad_rel_l2(tk["grads"], tp["grads"])
+    stats = max(float((tk["stats"][n] - tp["stats"][n]).abs().max())
+                / max(float(tp["stats"][n].abs().max()), 1e-30)
+                for n in tp["stats"])
+    y_rel = ((tk["y"] - tp["y"]).abs().max() / tp["y"].abs().max()).item()
+    log(f"[13b basic] train forward + backward at 'highest': {ms_t:.2f} ms, "
+        f"peak memory {peak / 2**30:.3f} GiB; launches {ct}; kernels vs "
+        f"plain: output max rel {y_rel:.3e}, gradients rel L2 by module "
+        f"{ {k: round(v, 6) for k, v in grad_l2.items()} } "
+        f"({TRAIN_GRAD_L2_TOL}), new statistics {stats:.3e} "
+        f"({TRAIN_STATS_TOL})")
+    out["train"] = dict(ms=ms_t, peak_memory_bytes=peak, launches=ct,
+                        out_max_rel=y_rel, grad_rel_l2=grad_l2,
+                        stats_max_rel=stats)
+    if ct != BASIC_TRAIN:
+        raise RuntimeError(f"13b: train launches {ct}, expected "
+                           f"{BASIC_TRAIN}")
+    if not (max(grad_l2.values()) <= TRAIN_GRAD_L2_TOL
+            and stats <= TRAIN_STATS_TOL and y_rel <= E2E_HM_TOL):
+        raise RuntimeError("13b: the train step's kernels and plain "
+                           "versions disagree")
+    del model
+    torch.cuda.empty_cache()
+
+    # the library stem: conv1_t_stride=2, no max-pool
+    lib = build(conv1_t_stride=2, no_max_pool=True)
+    lk, cl, ms_l = serve(lib, True)
+    lp, _, _ = serve(lib, False)
+    add(cl)
+    l_rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    log(f"[13b basic] library stem (conv1_t_stride=2, no_max_pool): "
+        f"heatmaps {tuple(lk.shape)}, {ms_l:.2f} ms, launches {cl}, kernels "
+        f"vs plain max rel {l_rel:.3e} ({E2E_HM_TOL})")
+    out["library_stem"] = dict(ms=ms_l, launches=cl, hm_max_rel_err=l_rel,
+                               shape=list(lk.shape))
+    if "stem_conv_raw" in cl or "maxpool3d_k3s2p1" in cl:
+        raise RuntimeError(f"13b: the library stem launched {cl}")
+    if not (torch.isfinite(lk).all() and l_rel <= E2E_HM_TOL):
+        raise RuntimeError("13b: the library stem's kernels and plain "
+                           "versions disagree")
+    del lib
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def dv_forward64(model, lct, x):
+    """DeepVoxels' forward in float64, written out with library ops from
+    the model's weights and the LCT constants widened."""
+    import torch.nn.functional as F
+
+    from hiddenpose_tpu_torch.ops.normalize import normalize
+
+    down = model.downnet
+    d = torch.float64
+
+    def conv(m, h, stride=1):
+        return F.conv3d(h, m.weight.to(d), m.bias.to(d), stride)
+
+    def edge(h):
+        return F.pad(h, (1,) * 6, mode="replicate")
+
+    x = normalize(x.to(d))
+    h = conv(down.conv1[1], edge(x), 2)
+    for res in (down.conv1[2], down.conv1[3]):
+        a = F.leaky_relu(conv(res.tmp[1], edge(h)), 0.2)
+        h = F.leaky_relu(conv(res.tmp[4], edge(a)) + h, 0.2)
+    h2 = F.conv3d(x, down.weights.to(d), None, 2, 1)
+    h = torch.cat([h2, h], dim=1)
+    b, ch = h.shape[:2]
+    v = h.reshape(b * ch, *h.shape[2:])
+    t, n = lct.time_size, lct.image_size
+    v = v * (lct.gridz.to(d) ** 4)[None, :, None, None]
+    v = torch.matmul(lct.mtx.to(d), v.reshape(b * ch, t, n * n)).reshape(
+        v.shape)
+    f = torch.fft.rfftn(v, s=(2 * t, 2 * n, 2 * n), dim=(1, 2, 3))
+    v = torch.fft.irfftn(f * lct.invpsf.to(torch.complex128)[None],
+                         s=(2 * t, 2 * n, 2 * n), dim=(1, 2, 3))
+    del f
+    v = v[:, :t, :n, :n]
+    v = torch.matmul(lct.mtxi.to(d), v.reshape(b * ch, t, n * n)).reshape(
+        b, ch, t, n, n)
+    v = v[:, :, : t * 100 // 128]
+    return normalize(torch.relu(v)) * 1.0e5
+
+
+def deepvoxels_phase(dev, smi):
+    """13c and 13d: DeepVoxels at the reference's size (``build_deepvoxels``
+    defaults: a (1, 1, 512, 256, 256) capture), then the resampler and
+    wave ops on its output."""
+    from hiddenpose_tpu_torch.models.deepvoxels import build_deepvoxels
+    from hiddenpose_tpu_torch.ops.resample import MultiViewResampler
+    from hiddenpose_tpu_torch.ops.wave import wave_convolve
+
+    t, n = DV_CAPTURE
+    model, lct = build_deepvoxels(time_size=t, image_size=n, device=dev,
+                                  seed=0)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        1, 1, t, n, n).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        model(x, lct)  # cuFFT's and cuDNN's plans
+        torch.cuda.reset_peak_memory_stats(dev)
+        (y, c) = _counted(lambda: model(x, lct))
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms = cuda_ms(lambda: model(x, lct), iters=3)
+        ref = dv_forward64(model, lct, x)
+    err = ((y.double() - ref).abs().max() / ref.abs().max()).item()
+    log(f"[13c deepvoxels] {tuple(x.shape)} -> {tuple(y.shape)} "
+        f"{y.dtype}: {ms:.2f} ms, peak memory {peak / 2**30:.3f} GiB, "
+        f"launches {c}; against float64 max err {err:.3e} of the max "
+        f"({DV_F64_TOL}); output in [{y.min().item():.4g}, "
+        f"{y.max().item():.4g}]  [{smi}]")
+    out = dict(ms=ms, peak_memory_bytes=peak, launches=c,
+               err_vs_f64=err, shape=list(y.shape))
+    want_shape = (1, 17, t // 2 * 100 // 128, n // 2, n // 2)
+    if tuple(y.shape) != want_shape or not bool(
+            torch.isfinite(y).all()) or err > DV_F64_TOL:
+        raise RuntimeError("13c: DeepVoxels' forward is wrong")
+    del ref
+    torch.cuda.empty_cache()
+
+    # 13d: the ops on DeepVoxels' output, card vs CPU
+    kw = dict(spatial=n // 2, tdim=y.shape[2], trange=t * 0.01,
+              wall_size=2.0)
+    t0 = time.perf_counter()
+    got = MultiViewResampler(**kw, device=dev)(y, [5])
+    want = MultiViewResampler(**kw, device="cpu")(y.cpu(), [5])
+    r_err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    wk = dict(bin_resolution=0.02 / 3e8, virtual_wavelength=0.2, cycles=5)
+    wg = wave_convolve(y[0, 0], **wk)
+    wc = wave_convolve(y[0, 0].cpu(), **wk)
+    w_err = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(wg, wc))
+    log(f"[13d ops] MultiViewResampler view 5 {tuple(got.shape)}, card vs "
+        f"CPU max err {r_err:.3e} of the max; wave_convolve of channel 0 "
+        f"{tuple(wg[0].shape)} x 2, {w_err:.3e} ({DV_OPS_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    out.update(resample_err=r_err, wave_err=w_err)
+    if not (r_err <= DV_OPS_TOL and w_err <= DV_OPS_TOL
+            and float(want.abs().max()) > 0):
+        raise RuntimeError("13d: the card and the CPU disagree")
+    del model, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_models(dev, smi):
+    """Phase 13: 13a-13d; the launch counts of their main-path runs."""
+    out, counts = {}, {}
+    for name, fn in (("bf16_simdr", bf16_simdr),
+                     ("basic_posenet", basic_posenet)):
+        t0 = time.perf_counter()
+        out[name], c = fn(dev, smi)
+        out[name]["seconds"] = time.perf_counter() - t0
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["deepvoxels"] = deepvoxels_phase(dev, smi)
+    out["deepvoxels"]["seconds"] = time.perf_counter() - t0
     return out, counts
 
 
@@ -3261,8 +3812,8 @@ def main() -> int:
 
 
 def run() -> int:
-    """Phases 1-12 (1, 2 and 11 with ``--loop``, 1, 2 and 12 with
-    ``--alt``) and the result lines."""
+    """Phases 1-13 (1, 2 and 11 with ``--loop``, 1, 2 and 12 with
+    ``--alt``, 1, 2 and 13 with ``--models``) and the result lines."""
     # cuBLAS is deterministic only with a fixed workspace; set before the
     # first CUDA call (deterministic() checks for it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3290,6 +3841,15 @@ def run() -> int:
         (out / "chip_smoke_loop.json").write_text(json.dumps(dict(
             device=smi, seconds=seconds, train_loop=train_loop), indent=1))
         log(f"[11 train loop] alone: done  [{smi}]")
+        return 0
+    if sys.argv[1:] == ["--models"]:  # phase 13 alone
+        models, model_counts = timed("13 models", phase_models, dev, smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_models.json").write_text(json.dumps(dict(
+            device=smi, seconds=seconds, models=models,
+            launches=model_counts), indent=1, default=str))
+        log(f"[13 models] alone: done  [{smi}]")
         return 0
     if sys.argv[1:] == ["--alt"]:  # phase 12 alone
         alt, alt_counts = timed("12 alt objectives", phase_alt_objectives,
@@ -3328,6 +3888,8 @@ def run() -> int:
     torch.cuda.empty_cache()
     alt, alt_counts = timed("12 alt objectives", phase_alt_objectives, dev,
                             smi)
+    torch.cuda.empty_cache()
+    models, model_counts = timed("13 models", phase_models, dev, smi)
 
     from hiddenpose_tpu_torch.ops.kernels import KERNELS
 
@@ -3356,11 +3918,14 @@ def run() -> int:
             # 10's 3 + 1 + 3 train steps at 'default', 'high' and bf16,
             # phase 11's train loop (4 steps at 'default'), phase 12's
             # 3 + 1 SimDR steps, posenet2d forward and 2 steps, and
-            # heatmap3d step
+            # heatmap3d step, and phase 13's 3 + 1 bf16 SimDR steps and
+            # the basic PoseNet3D's f32 and bf16 forwards, train forward +
+            # backward and library-stem forward
             launches=(serve_counts[name] + train_counts[name]
                       + sformer_counts[name] + probe_counts[name]
                       + bf16_counts[name] + prec_counts[name]
-                      + loop_counts[name] + alt_counts.get(name, 0)),
+                      + loop_counts[name] + alt_counts.get(name, 0)
+                      + model_counts.get(name, 0)),
             max_abs_err=max(x["max_abs_err"] for x in on_path),
             max_abs_err_all_shapes=max(x["max_abs_err"] for x in r),
             ms=total("ms"), plain_ms=total("plain_ms"),
@@ -3383,7 +3948,7 @@ def run() -> int:
         serve=serve, end_to_end=e2e, train=train, sformer=sformer,
         probes=probes, serve_bf16=serve_bf16,
         train_precision=train_precision, train_loop=train_loop,
-        alt_objectives=alt), indent=1))
+        alt_objectives=alt, models=models), indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

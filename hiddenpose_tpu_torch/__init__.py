@@ -9,7 +9,10 @@ of ``data/``, evaluated by ``eval/harness.py``, and driven from the
 command line by ``python -m hiddenpose_tpu_torch.cli.train`` / ``.test``;
 and the transformer variant, video -> NlosPoseSformer -> SimDR logits ->
 joints (``models/sformer.py``); the other training objectives
-(``train/alt_steps.py``), NlosPose's ``posenet2d`` backbone and TokenPose.  Imports torch, never jax;
+(``train/alt_steps.py``), NlosPose's ``posenet2d`` backbone and TokenPose,
+PoseNet3D's other configurations, DeepVoxels (``models/deepvoxels.py``),
+the wave, resample and channelled-LCT ops, and the figures (``viz/``).
+Imports torch, never jax;
 the hot kernels are hand-written CUDA under ``csrc/``.
 
 Every entry point that takes a ``device`` defaults to the GPU (``"cuda"``,

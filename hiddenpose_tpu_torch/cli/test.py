@@ -8,8 +8,12 @@ The flags and three modes of the JAX package's ``test.py``:
 ``--variant sformer``, NlosPoseSformer) and ``test_fk`` (fk-dataset
 captures), restoring the latest ``epoch_*`` checkpoint of ``--model``.
 Joints are written as the same ``.txt`` files (``preds_{id}``,
-``gt_{id}``, ``pred_joints_{name}``, ``sformer_joints_{name}``); the png
-figures wait for the visualiser's port (ROADMAP Queue 1 item 8).
+``gt_{id}``, ``pred_joints_{name}``, ``sformer_joints_{name}``) and
+figures as the JAX command draws them (``viz/visualizer.py``): each
+skeleton's png beside its ``.txt`` under ``joints/``, and for a measured
+capture the refinement's three views as ``threeviews/feature_{name}``.
+A figure is best-effort: where it cannot be drawn (no matplotlib, as on
+the GPU host) the command warns once and writes the ``.txt`` files.
 ``--device`` is a GPU index (default 0) or ``cpu``; without a GPU the
 command fails unless given ``--device cpu``.
 """
@@ -23,6 +27,7 @@ import os
 import numpy as np
 
 from hiddenpose_tpu_torch.cli import device_arg
+from hiddenpose_tpu_torch.viz.visualizer import joints_log, threeviews_log
 
 
 def parse_args(argv=None):
@@ -50,15 +55,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def write_joints(joints, out_dir: str, name: str) -> str:
-    """``<out_dir>/<name>.txt``: the (J, 3) joints, as the JAX package's
-    ``joints_log`` writes them."""
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{name}.txt")
-    np.savetxt(path, np.asarray(joints).reshape(-1, 3))
-    return path
-
-
 def _load_state(path, cfg, model):
     from hiddenpose_tpu_torch.train import checkpoint as ckpt
     from hiddenpose_tpu_torch.train.state import TrainState
@@ -76,7 +72,8 @@ def _load_state(path, cfg, model):
 
 def main(argv=None):
     """Run the command; returns {'device', 'mpjpe' (None outside
-    test_pose_v2), 'joints': {name: (J, 3) array}}."""
+    test_pose_v2), 'joints': {name: (J, 3) array}, 'figures': [the pngs
+    drawn]}."""
     args = parse_args(argv)
 
     import torch
@@ -107,11 +104,27 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, compute_dtype=args.dtype))
     joints_dir = os.path.join(args.out, "joints")
-    results = {"device": str(device), "mpjpe": None, "joints": {}}
+    views_dir = os.path.join(args.out, "threeviews")
+    results = {"device": str(device), "mpjpe": None, "joints": {},
+               "figures": []}
+    warned = []
+
+    def figure(draw, *a):
+        """One png, best-effort (warned about once)."""
+        try:
+            results["figures"].append(draw(*a))
+        except Exception as e:
+            if not warned:
+                warned.append(e)
+                print(f"WARNING: figures not drawn ({e!r}); the joints' "
+                      ".txt files are written")
 
     def log_joints(joints, name):
-        write_joints(joints, joints_dir, name)
-        results["joints"][name] = np.asarray(joints).reshape(-1, 3)
+        """The joints' .txt (written before the figure is drawn, so it
+        is there without matplotlib) and their figure."""
+        joints = np.asarray(joints).reshape(-1, 3)
+        results["joints"][name] = joints
+        figure(joints_log, joints, joints_dir, name)
 
     model = state = lct = eval_step = None
     if not (args.test == "test_realdata" and args.variant == "sformer"):
@@ -126,6 +139,7 @@ def main(argv=None):
             np.ascontiguousarray(meas_thw[None, None], np.float32))
         out = eval_step(state, {"meas": meas.to(device)}, lct)
         preds = out["pred_joints"][0].float().cpu().numpy().reshape(-1, 3)
+        figure(threeviews_log, out["refine"], views_dir, f"feature_{name}")
         log_joints(preds, f"pred_joints_{name}")
         print(f"{name}: joints span "
               f"{preds.min(0).round(1)}..{preds.max(0).round(1)}")

@@ -969,6 +969,15 @@ extern "C" int hp_attend_plan(long long B, int Lq, int Lk, int dh) {
   return plan(B, Lq, Lk, dh, &chunk);
 }
 
+// The length of hp_attend_plan's chunks (keys, a multiple of 64), 0 for a
+// shape the kernel does not take.
+extern "C" int hp_attend_chunk(long long B, int Lq, int Lk, int dh) {
+  if (!valid(B, Lq, Lk, dh)) return 0;
+  int chunk;
+  plan(B, Lq, Lk, dh, &chunk);
+  return chunk;
+}
+
 // q (B, Lq, dh), k and v (B, Lk, dh), out (B, Lq, dh), contiguous and
 // 16-byte aligned, with dh % 4 == 0 and dh <= 256.  qk_bf16 / v_bf16 say
 // whether q and k / v and out are bf16 (else f32); bf16 q and k with an f32

@@ -1,7 +1,8 @@
 """3^3 stencil convolutions and the FeatureExtraction front end.
 
 Port of ``hiddenpose_tpu/models/blocks.py`` (``StencilConv3``,
-``ResConv3D``, ``FeatureExtraction``; the stride-1 path).  Volumes are
+``ResConv3D``, ``FeatureExtraction`` at stride 1 and 2,
+``Transient2Volumn`` and ``SmartConv3D``).  Volumes are
 NCDHW, which is the JAX package's channels-planes layout, so every 3^3
 conv goes straight to the K1 kernel (``ops/kernels/conv3p.py``) with no
 transposes; with grad mode on, through its ``autograd.Function``
@@ -17,6 +18,14 @@ f32 and a second rounding; the port runs K1-bf16 on the rounded weights
 there and the rest as plain ops.  In training the backward runs in f32
 and rounds the cotangents of the bf16 values (input, residual, rounded
 weights) to bf16, as the JAX one does.
+The stride-2 front ends (``FeatureExtraction(stride=2)`` and DeepVoxels'
+``Transient2Volumn``) never reach the JAX package's Pallas kernel: its
+``ResConv3D`` there runs the library conv.  The port routes their 3^3
+convs by the gate all the same (K1 where :func:`k1_admits`, the plain
+version where it refuses, as for DeepVoxels' 16 -> 16 convs), and rounds
+a bf16 model as the JAX library conv does.  ``SmartConv3D``'s
+space-to-depth lowering only served the TPU's matrix unit, so it is the
+library conv here.
 Module and parameter names follow the reference PyTorch model, so
 ``hiddenpose_tpu.utils.torch_import.convert_state_dict`` reads this
 model's ``state_dict`` directly.
@@ -72,17 +81,25 @@ class StencilConv3(nn.Conv3d):
 
     def __init__(self, in_channels: int, out_channels: int,
                  pad_mode: str = "zero", bias: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, jax_pallas: bool = True):
         super().__init__(in_channels, out_channels, 3, bias=bias)
         self.pad_mode = pad_mode
         self.compute_dtype = dtype
+        # False where the JAX package never offers this conv to its Pallas
+        # gate (the stride-2 front ends): the f32 model then runs K1 only
+        # where the gate admits the shape, and the bf16 model rounds as
+        # the JAX library conv
+        self.jax_pallas = jax_pallas
         self.use_kernels = True
 
     def forward(self, x, residual=None, act: str = "none"):
         dt = self.compute_dtype
         w = dhwio(self.weight)
-        if dt == torch.float32 or k1_admits(x.shape, self.in_channels,
-                                            self.out_channels):
+        admits = k1_admits(x.shape, self.in_channels, self.out_channels)
+        if not self.jax_pallas and dt == torch.float32 and not admits:
+            return conv3_planes_ref(x, w, self.bias, residual, act=act,
+                                    pad_mode=self.pad_mode)
+        if dt == torch.float32 or (admits and self.jax_pallas):
             return conv3p_route(self.use_kernels, x.dtype)(
                 x, w, self.bias, residual, act=act,
                 pad_mode=self.pad_mode).to(dt)
@@ -103,14 +120,17 @@ class ResConv3D(nn.Module):
     """leaky(x + conv(leaky(conv(x)))) with edge padding; reference tree
     ``tmp = [pad, conv, leaky, pad, conv]`` (convs at ``tmp.1``/``tmp.4``)."""
 
-    def __init__(self, channels: int, dtype=torch.float32):
+    def __init__(self, channels: int, dtype=torch.float32,
+                 jax_pallas: bool = True):
         super().__init__()
         self.tmp = nn.ModuleList([
             nn.ReplicationPad3d(1),
-            StencilConv3(channels, channels, pad_mode="edge", dtype=dtype),
+            StencilConv3(channels, channels, pad_mode="edge", dtype=dtype,
+                         jax_pallas=jax_pallas),
             nn.LeakyReLU(0.2),
             nn.ReplicationPad3d(1),
-            StencilConv3(channels, channels, pad_mode="edge", dtype=dtype),
+            StencilConv3(channels, channels, pad_mode="edge", dtype=dtype,
+                         jax_pallas=jax_pallas),
         ])
 
     def forward(self, x):
@@ -127,28 +147,67 @@ def corner_mask(in_channels: int = 1) -> torch.Tensor:
     return w / w.sum()
 
 
-class FeatureExtraction(nn.Module):
-    """Dual-branch front end (stride 1): a learned branch
-    (edge-pad conv + 2 x ResConv3D) plus the corner-mask conv with zero
-    padding.  With ``basedim == 1`` the learned branch rides the corner
-    conv's fused residual input.  x (B, C_in, D, H, W) -> (B, basedim, ...).
-    """
+def strided_conv(m: nn.Conv3d, x, dtype):
+    """The JAX package's ``nn.Conv(dtype=...)`` of the stride-2 front ends
+    on an already padded ``x``: input, weight and bias in ``dtype``, the
+    bias added to the conv's result in ``dtype``."""
+    y = F.conv3d(x.to(dtype), m.weight.to(dtype), None, m.stride)
+    return y + m.bias.to(dtype)[:, None, None, None]
 
-    def __init__(self, basedim: int = 1, in_channels: int = 1,
-                 dtype=torch.float32):
+
+def corner_conv(weights: torch.Tensor, x, stride: int, dtype):
+    """The corner-mask branch at ``stride``, zero padding 1, in ``dtype``
+    (``lax.conv_general_dilated`` of the operands cast to it)."""
+    return F.conv3d(x.to(dtype), weights.to(dtype), None, stride, 1)
+
+
+class _DualBranch(nn.Module):
+    """The learned branch (edge pad, a 3^3 conv at ``stride``, two
+    ``ResConv3D``) and the corner-mask conv's weights, under the
+    reference's names (``conv1.{1,2,3}``, ``weights``)."""
+
+    def __init__(self, basedim: int, in_channels: int, stride: int,
+                 dtype):
         super().__init__()
-        self.basedim = basedim
+        self.basedim, self.stride = basedim, stride
+        first = (StencilConv3(in_channels, basedim, pad_mode="edge",
+                              dtype=dtype) if stride == 1 else
+                 nn.Conv3d(in_channels, basedim, 3, stride=stride))
         self.conv1 = nn.ModuleList([
             nn.ReplicationPad3d(1),
-            StencilConv3(in_channels, basedim, pad_mode="edge", dtype=dtype),
-            ResConv3D(basedim, dtype),
-            ResConv3D(basedim, dtype),
+            first,
+            ResConv3D(basedim, dtype, jax_pallas=stride == 1),
+            ResConv3D(basedim, dtype, jax_pallas=stride == 1),
         ])
         self.weights = nn.Parameter(corner_mask(in_channels))
         self.compute_dtype = dtype
         self.use_kernels = True
 
+    def strided(self, x):
+        """(learned branch, corner branch) at the stride, NCDHW."""
+        dt = self.compute_dtype
+        h = strided_conv(self.conv1[1], F.pad(x, (1,) * 6, mode="replicate"),
+                         dt)
+        h = self.conv1[3](self.conv1[2](h))
+        return h, corner_conv(self.weights, x, self.stride, dt)
+
+
+class FeatureExtraction(_DualBranch):
+    """Dual-branch front end: a learned branch (edge-pad conv + 2 x
+    ResConv3D) plus the corner-mask conv with zero padding, summed (the
+    corner branch's one channel broadcasts over ``basedim``).  At stride 1
+    with ``basedim == 1`` the learned branch rides the corner conv's fused
+    residual input.  x (B, C_in, D, H, W) -> (B, basedim, ...), each
+    extent divided by ``stride`` (rounded up)."""
+
+    def __init__(self, basedim: int = 1, in_channels: int = 1,
+                 dtype=torch.float32, stride: int = 1):
+        super().__init__(basedim, in_channels, stride, dtype)
+
     def forward(self, x):
+        if self.stride != 1:
+            h, h2 = self.strided(x)
+            return h + h2
         # as the JAX module: the learned branch's first conv on x in its
         # own type, the corner conv on x and its kernel rounded to the
         # model's type (bf16 values in f32, for K1)
@@ -160,3 +219,39 @@ class FeatureExtraction(nn.Module):
         if self.basedim == 1:
             return fn(x, corner, None, h, pad_mode="zero")
         return h + fn(x, corner, pad_mode="zero")
+
+
+class Transient2Volumn(_DualBranch):
+    """DeepVoxels' stride-2 encoder: the learned branch and the
+    corner-mask branch CONCATENATED, the corner branch's channel first
+    (FeatureExtraction sums them).  x (B, C_in, D, H, W) -> (B, 1 +
+    basedim, D/2, H/2, W/2)."""
+
+    def __init__(self, basedim: int = 1, in_channels: int = 1,
+                 dtype=torch.float32):
+        super().__init__(basedim, in_channels, 2, dtype)
+
+    def forward(self, x):
+        h, h2 = self.strided(x)
+        return torch.cat([h2, h], dim=1)
+
+
+class SmartConv3D(nn.Conv3d):
+    """A stride-1 SAME 3^3 (or k^3, k odd) conv with bias: the library
+    conv in ``dtype`` (the JAX module's space-to-depth lowering fed the
+    TPU's matrix unit and computes the same function), its f32 sums
+    rounded once to ``dtype`` and the bias added in it."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: int = 3, use_bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__(in_channels, features, kernel_size,
+                         padding=kernel_size // 2, bias=use_bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = F.conv3d(x.to(dt), self.weight.to(dt), None, 1, self.padding)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(dt)[:, None, None, None]

@@ -43,6 +43,26 @@ its input rounds back to bf16), so the residual adds and ReLUs run in f32
 and the next conv rounds again; the head's final conv adds its bias in
 bf16.
 
+The other configurations of the JAX ``PoseNet3D``: ``block="basic"``
+(:class:`BasicBlock`, the ResNet-18/34 block: two 3^3 convs, bn2 without
+a ReLU, the ReLU after the residual add), ``widen_factor`` (each width
+``int(w * widen_factor)``), and the stem knobs ``conv1_t_size``,
+``conv1_t_stride`` and ``no_max_pool``.  The stem follows the JAX
+package's gate: with ``conv1_t_size == 7``, ``conv1_t_stride == 1``, the
+max-pool on, at most 2 input channels and even extents it is the stem
+above (K2 needs one input channel and 64 features; a 2-channel input, or
+another width, takes the library conv with bn1 and ReLU in serving, and
+the library conv's plain autograd in training, then the pool by K3 and
+K7 as above); otherwise the library stem: a (t, 7, 7) conv at stride
+(t_stride, 1, 1) with flax's SAME padding (for a stride the low side
+pads the smaller half: (2, 3) for k7 s2 on an even extent), bn1, ReLU and
+``F.max_pool3d(3, 2, 1)`` unless ``no_max_pool``.  Every 3^3 stride-1
+conv that the JAX router admits (:func:`router_admits`), in a BasicBlock
+conv1 as well as conv2, runs K4 as the Bottleneck's conv2 does: in
+serving with its BN affine fused into the epilogue where that rounds as
+the JAX package does (f32: bn1 with its ReLU, bn2 without; bf16: bn2
+only, conv1's output is rounded to bf16 before bn1 as JAX rounds it).
+
 Module names follow the reference PyTorch model (``conv1``/``bn1``,
 ``layer{s}.{b}.conv{1,2,3}``/``bn{1,2,3}``/``downsample.{0,1}``,
 ``head.features.{0..9}``).
@@ -56,6 +76,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hiddenpose_tpu_torch import resolve_device
 from hiddenpose_tpu_torch.models.blocks import dhwio
 from hiddenpose_tpu_torch.ops.kernels import (
     conv3_mxu,
@@ -73,10 +94,6 @@ from hiddenpose_tpu_torch.ops.kernels import (
 )
 from hiddenpose_tpu_torch.ops.kernels.conv3mxu import route, router_admits
 from hiddenpose_tpu_torch.ops.stem_vjp import stem_conv_diff
-
-# Bottleneck widths whose stride-1 conv2 runs the K4 kernel (the shapes the
-# JAX package routes to conv3mxu; c512 stays a library conv there too).
-K4_PLANES = (64, 128, 256)
 
 
 def bn_affine(bn: nn.BatchNorm3d):
@@ -136,6 +153,44 @@ class FlaxBatchNorm3d(nn.BatchNorm3d):
         return y
 
 
+def _ndhwc(x):
+    """(B, C, D, H, W) -> the (B, D, H, W, C) the kernels take."""
+    return x.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv3_bn(block: nn.Module, m: nn.Conv3d, bnm: nn.BatchNorm3d, x,
+             relu: bool, fold_bf16: bool = True):
+    """``bnm(m(x))`` of a block's 3^3 conv ``m``, then a ReLU where
+    ``relu``.  A stride-1 conv that the JAX router admits runs K4: in
+    serving with the BN affine and the ReLU in its epilogue (for a bf16
+    block only where ``fold_bf16``; else K4-bf16's bf16 result, then the
+    BN in f32, as the JAX package rounds a conv it does not fuse); in
+    training by the route of the ambient precision.  Anything else is the
+    library conv."""
+    dt = block.compute_dtype
+    cin, cout = m.in_channels, m.out_channels
+    act = F.relu if relu else (lambda t: t)
+    if m.stride != (1, 1, 1) or not router_admits(
+            (x.shape[0], *x.shape[2:], cin), cin, cout):
+        return act(bn(bnm, conv(m, x, dt)))
+    k = dhwio(m.weight).to(dt)
+    xin = _ndhwc(x.to(dt))
+    if fused(block):
+        fn = conv3_mxu if block.use_kernels else conv3_mxu_ref
+        if dt == torch.bfloat16 and block.use_kernels:
+            fn = conv3_mxu_bf16
+        if dt == torch.float32 or fold_bf16:
+            scale, shift = bn_affine(bnm)
+            return fn(xin, k, scale, shift, relu=relu).permute(0, 4, 1, 2, 3)
+        return act(bn(bnm, fn(xin, k).permute(0, 4, 1, 2, 3)))
+    if route() == "bwd":
+        y = conv3_mxu_bwd_diff(xin, k, plain=not block.use_kernels)
+    else:
+        fn = conv3_mxu_diff if block.use_kernels else conv3_mxu_ref
+        y = fn(xin, k)
+    return act(bn(bnm, y.permute(0, 4, 1, 2, 3)))
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -155,35 +210,46 @@ class Bottleneck(nn.Module):
             nn.Sequential(nn.Conv3d(in_planes, out, 1, stride=stride,
                                     bias=False), FlaxBatchNorm3d(out))
             if downsample else None)
-        self.k4 = stride == 1 and planes in K4_PLANES
         self.use_kernels = True
 
     def forward(self, x):
         dt = self.compute_dtype
         out = F.relu(bn(self.bn1, conv(self.conv1, x, dt)))
-        if self.k4 and fused(self):
-            scale, shift = bn_affine(self.bn2)
-            fn = conv3_mxu if self.use_kernels else conv3_mxu_ref
-            if dt == torch.bfloat16 and self.use_kernels:
-                fn = conv3_mxu_bf16
-            out = fn(out.to(dt).permute(0, 2, 3, 4, 1).contiguous(),
-                     dhwio(self.conv2.weight).to(dt), scale, shift,
-                     relu=True)
-            out = out.permute(0, 4, 1, 2, 3)
-        elif self.k4 and router_admits(
-                (out.shape[0], *out.shape[2:], out.shape[1]),
-                out.shape[1], out.shape[1]):
-            xin = out.to(dt).permute(0, 2, 3, 4, 1).contiguous()
-            k = dhwio(self.conv2.weight).to(dt)
-            if route() == "bwd":
-                y = conv3_mxu_bwd_diff(xin, k, plain=not self.use_kernels)
-            else:
-                fn = conv3_mxu_diff if self.use_kernels else conv3_mxu_ref
-                y = fn(xin, k)
-            out = F.relu(bn(self.bn2, y.permute(0, 4, 1, 2, 3)))
-        else:
-            out = F.relu(bn(self.bn2, conv(self.conv2, out, dt)))
+        out = conv3_bn(self, self.conv2, self.bn2, out, relu=True)
         out = bn(self.bn3, conv(self.conv3, out, dt))
+        residual = x
+        if self.downsample is not None:
+            residual = bn(self.downsample[1], conv(self.downsample[0], x, dt))
+        return F.relu(out + residual)
+
+
+class BasicBlock(nn.Module):
+    """The ResNet-18/34 block: relu(bn2(conv2(relu(bn1(conv1(x))))) +
+    residual), both convs 3^3 (conv1 at the block's stride)."""
+
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.conv1 = nn.Conv3d(in_planes, planes, 3, stride=stride,
+                               padding=1, bias=False)
+        self.bn1 = FlaxBatchNorm3d(planes)
+        self.conv2 = nn.Conv3d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = FlaxBatchNorm3d(planes)
+        self.downsample = (
+            nn.Sequential(nn.Conv3d(in_planes, planes, 1, stride=stride,
+                                    bias=False), FlaxBatchNorm3d(planes))
+            if downsample else None)
+        self.use_kernels = True
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        out = conv3_bn(self, self.conv1, self.bn1, x, relu=True,
+                       fold_bf16=False)
+        # bn2 has no ReLU: the ReLU follows the residual add
+        out = conv3_bn(self, self.conv2, self.bn2, out, relu=False)
         residual = x
         if self.downsample is not None:
             residual = bn(self.downsample[1], conv(self.downsample[0], x, dt))
@@ -217,15 +283,34 @@ class DeconvHead(nn.Module):
         return conv(f[-1], x, self.compute_dtype)
 
 
+def same_pads(n: int, k: int, s: int):
+    """flax's SAME padding of one axis: (low, high) for extent ``n``,
+    kernel ``k``, stride ``s``."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
 class PoseNet3D(nn.Module):
-    """(B, 1, D, H, W) -> heatmaps (B, num_joints, D/2, H/2, W/2)."""
+    """(B, C, D, H, W) -> heatmaps (B, num_joints, D', H', W'): D/2 x H/2 x
+    W/2 with the default stem."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  widths: Sequence[int] = (64, 128, 256, 512),
-                 num_joints: int = 24, dtype=torch.float32):
+                 num_joints: int = 24, dtype=torch.float32,
+                 block: str = "bottleneck", widen_factor: float = 1.0,
+                 conv1_t_size: int = 7, conv1_t_stride: int = 1,
+                 no_max_pool: bool = False, in_channels: int = 1):
         super().__init__()
+        if block not in ("bottleneck", "basic"):
+            raise ValueError(f"block must be 'bottleneck' or 'basic', "
+                             f"got {block!r}")
         self.compute_dtype = dtype
-        self.conv1 = nn.Conv3d(1, widths[0], 7, padding=3, bias=False)
+        self.conv1_t_size, self.conv1_t_stride = conv1_t_size, conv1_t_stride
+        self.no_max_pool = no_max_pool
+        widths = [int(w * widen_factor) for w in widths]
+        block_cls = Bottleneck if block == "bottleneck" else BasicBlock
+        self.conv1 = nn.Conv3d(in_channels, widths[0], (conv1_t_size, 7, 7),
+                               stride=(conv1_t_stride, 1, 1), bias=False)
         self.bn1 = FlaxBatchNorm3d(widths[0])
         in_planes = widths[0]
         for stage, (planes, blocks) in enumerate(zip(widths, layers)):
@@ -234,46 +319,90 @@ class PoseNet3D(nn.Module):
             for b in range(blocks):
                 s = stride if b == 0 else 1
                 proj = b == 0 and (s != 1 or
-                                   in_planes != planes * Bottleneck.expansion)
-                seq.append(Bottleneck(in_planes, planes, s, proj, dtype))
-                in_planes = planes * Bottleneck.expansion
+                                   in_planes != planes * block_cls.expansion)
+                seq.append(block_cls(in_planes, planes, s, proj, dtype))
+                in_planes = planes * block_cls.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*seq))
         self.head = DeconvHead(in_planes, num_joints=num_joints, dtype=dtype)
         self.use_kernels = True
 
+    def s2d_stem(self, x) -> bool:
+        """The JAX package's gate of its fused (space-to-depth) stem."""
+        return (self.conv1_t_size == 7 and self.conv1_t_stride == 1
+                and not self.no_max_pool and x.shape[1] <= 2
+                and all(n % 2 == 0 for n in x.shape[2:]))
+
     def stem(self, x):
-        """conv7^3 + BN + ReLU then MaxPool3d(3, 2, 1): K2 and K3 in the
-        serving forward; else the library conv (its backward rewritten as
-        matrix products, ``stem_conv_diff``), bn1, ReLU and the
-        differentiable pool (K3, K7)."""
+        """conv7^3 + BN + ReLU then MaxPool3d(3, 2, 1) where the JAX gate
+        takes its fused stem (:meth:`s2d_stem`): K2 and K3 in the serving
+        forward; else the library conv (its backward rewritten as matrix
+        products, ``stem_conv_diff``), bn1, ReLU and the differentiable
+        pool (K3, K7).  Otherwise :meth:`library_stem`."""
+        if not self.s2d_stem(x):
+            return self.library_stem(x)
         b, c, d, h, w = x.shape
-        if c != 1:
-            raise ValueError(f"the stem takes 1 input channel, got {c}")
+        dt = self.compute_dtype
+        k2 = c == 1 and self.conv1.out_channels == 64
         if fused(self):
-            scale, shift = bn_affine(self.bn1)
-            stem = stem_conv_raw if self.use_kernels else stem_conv_raw_ref
             pool = (maxpool3d_k3s2p1 if self.use_kernels
                     else maxpool3d_k3s2p1_ref)
-            dt = self.compute_dtype
             if dt == torch.bfloat16 and self.use_kernels:
-                stem, pool = stem_conv_raw_bf16, maxpool3d_k3s2p1_bf16
-            y = stem(x.to(dt).reshape(b, d, h, w, 1).contiguous(),
-                     dhwio(self.conv1.weight).to(dt), scale, shift,
-                     relu=True)
+                pool = maxpool3d_k3s2p1_bf16
+            if k2:
+                scale, shift = bn_affine(self.bn1)
+                stem = (stem_conv_raw if self.use_kernels
+                        else stem_conv_raw_ref)
+                if dt == torch.bfloat16 and self.use_kernels:
+                    stem = stem_conv_raw_bf16
+                y = stem(x.to(dt).reshape(b, d, h, w, 1).contiguous(),
+                         dhwio(self.conv1.weight).to(dt), scale, shift,
+                         relu=True)
+            else:
+                y = F.conv3d(x.to(dt), self.conv1.weight.to(dt), padding=3)
+                y = _ndhwc(F.relu(self.bn1(y.float())).to(dt))
         else:
-            dt = self.compute_dtype
             xs, w = x.to(dt), self.conv1.weight.to(dt)
-            conv = (stem_conv_diff(xs, w) if self.use_kernels
+            conv = (stem_conv_diff(xs, w) if self.use_kernels and c == 1
                     else F.conv3d(xs, w, padding=3))
             # bn1 on the f32 widening, the ReLU's output in the model's type
             # (the reference's StemS2D: statistics of an f32 conv output)
-            y = F.relu(self.bn1(conv.float())).to(dt)
-            y = y.permute(0, 2, 3, 4, 1).contiguous()
+            y = _ndhwc(F.relu(self.bn1(conv.float())).to(dt))
             pool = (maxpool3d_k3s2p1_diff if self.use_kernels
                     else maxpool3d_k3s2p1_ref)
         return pool(y).permute(0, 4, 1, 2, 3)  # channels_last NCDHW view
+
+    def library_stem(self, x):
+        """The JAX package's other stem: a (t, 7, 7) conv at stride
+        (t_stride, 1, 1), SAME padding, in the model's type; bn1 (f32 out,
+        as flax's), ReLU; ``F.max_pool3d(3, 2, 1)`` unless
+        ``no_max_pool``."""
+        dt = self.compute_dtype
+        pads = [same_pads(n, k, s) for n, k, s in zip(
+            x.shape[2:], self.conv1.kernel_size, self.conv1.stride)]
+        xp = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+        y = F.conv3d(xp.to(dt), self.conv1.weight.to(dt), None,
+                     self.conv1.stride)
+        y = F.relu(bn(self.bn1, y))
+        return y if self.no_max_pool else F.max_pool3d(y, 3, 2, 1)
 
     def forward(self, x):
         x = self.stem(x)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         return self.head(x)
+
+
+def build_posenet3d(device="cuda", seed: int = 0, **kwargs) -> PoseNet3D:
+    """The eval-mode ``PoseNet3D(**kwargs)`` in ``torch.channels_last_3d``
+    on ``device`` (the GPU by default; raises without one unless
+    ``device="cpu"``), with the JAX package's initialisers from ``seed``;
+    TF32 off for a GPU, as ``build_nlospose`` sets it."""
+    from hiddenpose_tpu_torch.models.nlospose import init_weights
+
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    model = PoseNet3D(**kwargs)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model.to(memory_format=torch.channels_last_3d)
+    return model.to(device).eval()

@@ -63,6 +63,7 @@ SIGNATURES = {
     "hp_maxpool3d_k3s2p1_vjp": [_P] * 3 + [_I] * 8 + [_P],
     "hp_maxpool2_bwd": [_P] * 3 + [_I] * 7 + [_P],
     "hp_attend_plan": [_L] + [_I] * 3,
+    "hp_attend_chunk": [_L] + [_I] * 3,
     "hp_attend_fwd": [_P] * 5 + [_L] + [_I] * 5 + [_P],
     "hp_probe_im2col": [_P] * 2 + [_P],
     "hp_probe_slice_transpose": [_P] * 3 + [_I] * 2 + [_P],

@@ -148,6 +148,86 @@ def attend_split_ref(q, k, v, splits: int):
     return (num / den).to(v.dtype)
 
 
+LOG2E = 1.4426950408889634  # the kernel's base-2 exponentials' factor
+KEY_TILE = 64                 # keys a softmax update of the kernel takes
+
+
+def attend_online_ref(q, k, v, chunk=None):
+    """The kernel's softmax order in plain PyTorch, so that a computation
+    through it rounds where the kernel rounds: the tensor-core form's
+    (head dim 32; the SIMT form updates every 8 keys).  The keys pass in
+    tiles of 64.  A row keeps its running max n in base-2 units (the max score
+    times log2 e, over its chunk's tiles so far); a tile's weights are
+    p = 2^(s log2 e - n), rounded to ``v.dtype`` before ``p v`` (the row
+    sum l is taken before the rounding), and its ``p v`` and l enter the
+    chunk's sums scaled by 2^(n - n_last).  ``chunk``: keys a chunk, a
+    multiple of 64 (:func:`attend_chunk`; None, one chunk); the chunks
+    combine as :func:`attend_split_ref` combines them.  Scores, and an f32
+    ``p v``, as :func:`attend_3xtf32_ref`.  What is left against the
+    kernel is float32 rounding: the sums' order and ``ex2.approx``.  With
+    a bf16 v, :func:`attend_3xtf32_ref` rounds p against the row's final
+    max, which differs from the kernel's at every tile before the max."""
+    b, lq, dh = q.shape
+    lk = k.shape[1]
+    tiles = -(-lk // KEY_TILE)
+    per = tiles if chunk is None else chunk // KEY_TILE
+    if per < 1 or (chunk is not None and chunk % KEY_TILE):
+        raise ValueError(f"chunk must be a multiple of {KEY_TILE}, got "
+                         f"{chunk}")
+    nchunks = -(-tiles // per)
+    # groups a slice: about 2^27 scores, so that the full-width grouped
+    # call (1024 groups of 1024 x 1048) runs in a few GB
+    step = max(1, (1 << 27) // (lq * nchunks * per * KEY_TILE))
+    return torch.cat([_online_slice(q[g:g + step], k[g:g + step],
+                                    v[g:g + step], nchunks, per)
+                      for g in range(0, b, step)])
+
+
+def _online_slice(q, k, v, nchunks, per):
+    g, lq, dh = q.shape
+    lk = k.shape[1]
+    keys = nchunks * per * KEY_TILE
+    kt = torch.nn.functional.pad(k.float(), (0, 0, 0, keys - lk))
+    kt = kt.transpose(1, 2).contiguous()
+    if q.dtype == torch.float32:
+        s = _bmm_3xtf32(q, kt)
+    else:
+        s = torch.bmm(q.float(), kt)
+    s[..., lk:] = float("-inf")
+    s = s.view(g, lq, nchunks, per, KEY_TILE)
+    n = torch.cummax(s.amax(dim=-1) * LOG2E, dim=-1).values
+    p = torch.exp2(s * LOG2E - n[..., None])
+    del s
+    w = torch.exp2(n - n[..., -1:])             # 2^(n - n_last) a tile
+    l = (p.sum(dim=-1) * w).sum(dim=-1)         # (g, lq, chunks)
+    vt = torch.nn.functional.pad(v, (0, 0, 0, keys - lk))
+    vt = vt.reshape(g * nchunks * per, KEY_TILE, dh)
+    pt = p.view(g, lq, nchunks * per, KEY_TILE).transpose(1, 2)
+    pt = pt.reshape(g * nchunks * per, lq, KEY_TILE)
+    del p
+    if v.dtype == torch.float32:
+        part = _bmm_3xtf32(pt, vt)
+    else:
+        part = torch.bmm(pt.to(v.dtype).float(), vt.float())
+    part = part.view(g, nchunks, per, lq, dh)
+    acc = (part * w.permute(0, 2, 3, 1)[..., None]).sum(dim=2)
+    m = n[..., -1].transpose(1, 2)[..., None]   # (g, chunks, lq, 1)
+    l = l.transpose(1, 2)[..., None]
+    if nchunks > 1:
+        c = torch.exp2(m - m.amax(dim=1, keepdim=True))
+        acc, l = (c * acc).sum(dim=1), (c * l).sum(dim=1)
+    else:
+        acc, l = acc[:, 0], l[:, 0]
+    return (acc * (1.0 / l)).to(v.dtype)
+
+
+def attend_chunk(b: int, lq: int, lk: int, dh: int) -> int:
+    """Keys a chunk in the kernel's plan for this shape (a multiple of 64;
+    Lk rounded up to 64 where the plan is one chunk).  Builds the kernel
+    library: CUDA only."""
+    return int(_build.library().hp_attend_chunk(b, lq, lk, dh))
+
+
 def attend(q, k, v):
     """q (B, Lq, dh), scaled; k, v (B, Lk, dh) -> (B, Lq, dh) ``v.dtype``."""
     if q.dim() != 3 or k.dim() != 3:

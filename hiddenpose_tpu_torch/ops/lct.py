@@ -142,3 +142,14 @@ def lct_apply(meas: torch.Tensor, params: LCTParams, time_begin: int = 0,
         vol = F.conv3d(padded, params.lapw[None, None])[:, 0]
         vol[:, :1] = 0.0
     return vol
+
+
+def lct_apply_bdthw(meas: torch.Tensor, params: LCTParams,
+                    time_begin: int = 0,
+                    time_end: Optional[int] = None) -> torch.Tensor:
+    """The channelled form of the reference's call: meas (B, D, T', H, W)
+    -> (B, D, T, H, W), the channels folded into the batch."""
+    b, d = meas.shape[:2]
+    flat = meas.reshape(b * d, *meas.shape[2:])
+    vol = lct_apply(flat, params, time_begin, time_end)
+    return vol.reshape(b, d, *vol.shape[1:])

@@ -19,7 +19,11 @@ update), and updates both in place.  Each step runs at
 and restored by ``train/step.py::precision_scope``.  The Sformer's
 grouped attention and joint-token read run K9 (``AttendFused``: the
 kernel forward, the plain attention's gradient), 16 launches a step at
-depth 8.
+depth 8.  On a Sformer in the bfloat16 mode (its Dense layers bf16, as
+the JAX model's ``compute_dtype="bfloat16"``) the same step runs K9 on
+f32 q and k (the rotary tables promote them) and a bf16 v, and returns
+each gradient in its input's type, as ``jax.vjp`` of the JAX
+``attend_ref`` does: f32 dq and dk, a bf16 dv.
 """
 
 from __future__ import annotations

@@ -17,10 +17,16 @@ source), on one device:
   end) aborts the run before it can be saved;
 * ``iter_{n}`` checkpoints every ``ckpt_every_iters`` steps, ``epoch_{e}``
   at each epoch's end; the JAX loop's log lines and ``metrics.jsonl``
-  tags (``Train Loss``, ``joint_loss``, ``voxel_loss``).
+  tags (``Train Loss``, ``joint_loss``, ``voxel_loss``);
+* every ``viz_every`` steps the JAX loop's figures of the step's batch
+  (:func:`log_visuals`: the volume, heatmaps and refinement with the
+  ground-truth joints over them, predicted and ground-truth skeletons,
+  three-view projections; with ``viz_histograms`` a histogram of every
+  parameter under the JAX tree's tags), best-effort as in the JAX loop:
+  a failure (no matplotlib, as on the GPU host) is a warning.
 
-Not ported: the device mesh (multi-GPU, ROADMAP Queue 1 item 9) and the
-visual artifacts (``viz_every``, Queue 1 item 8), which raise.
+Not ported: the device mesh (multi-GPU, ROADMAP Queue 1 item 9), which
+raises.
 
 ``TrainResult.timings`` holds, per step, the seconds the loop spent and
 the seconds of that it waited on the loader, and per checkpoint its path
@@ -32,7 +38,9 @@ between reads, so a step's seconds are then its share of the host's time.
 from __future__ import annotations
 
 import itertools
+import logging
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional
@@ -72,6 +80,7 @@ def train(
     ckpt_every_iters: int = 10000,
     max_steps_per_epoch: Optional[int] = None,
     viz_every: Optional[int] = None,
+    viz_histograms: bool = False,
     shard_index: int = 0,
     shard_count: int = 1,
     weights: Optional[Mapping[str, torch.Tensor]] = None,
@@ -82,10 +91,6 @@ def train(
     ``weights``: a state_dict to start from instead of the seeded
     initialisation.  ``device``: the GPU by default (raises without one);
     ``"cpu"`` only when asked for."""
-    if viz_every:
-        raise NotImplementedError(
-            "viz_every: the visual artifacts are not ported yet (ROADMAP "
-            "Queue 1 item 8)")
     device = resolve_device(device)
     logger = create_logger(cfg.log_dir, phase=cfg.phase)
     model, lct = build_nlospose(cfg.model, device=device, seed=cfg.train.seed)
@@ -191,6 +196,10 @@ def train(
                 timings["step_s"].append(time.perf_counter() - t0)
                 timings["wait_s"].append(t1 - t0)
 
+                if viz_every and global_iter % viz_every == 0:
+                    log_visuals(cfg, model, batch, lct, global_iter,
+                                writer=writer if viz_histograms else None)
+
                 if ckpt_every_iters and global_iter % ckpt_every_iters == 0:
                     host, bad = flush()
                     if bad is not None:
@@ -215,3 +224,65 @@ def train(
     finally:
         pipeline.close()
         writer.close()
+
+
+def log_visuals(cfg, model, batch, lct, global_iter, writer=None) -> None:
+    """The JAX loop's figures of one interval under
+    ``<cfg.result_dir>/figure``: ``volume/{volume,output,feature}_{n}``
+    (axis sums with the first sample's ground-truth joints),
+    ``joints/{pred,gt}_joints_{n}`` (skeletons and their ``.txt``),
+    ``threeviews/{feature,output,volume}_{n}``; with ``writer``, a
+    histogram of every parameter tagged by its JAX tree path.  The
+    heatmaps and refinement are an eval-mode forward of the batch.
+    Best-effort: a failure is logged as a warning."""
+    try:
+        from hiddenpose_tpu_torch.ops.softargmax import softmax_integral
+        from hiddenpose_tpu_torch.viz.visualizer import (
+            host_array,
+            joints_log,
+            threeviews_log,
+            volume_log,
+        )
+
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                heatmaps, refine = model(batch["meas"], lct)
+                preds = softmax_integral(heatmaps, cfg.model.num_joints)
+        finally:
+            model.train(was_training)
+        out_dir = os.path.join(cfg.result_dir, "figure")
+        vol_dir = os.path.join(out_dir, "volume")
+        tv_dir = os.path.join(out_dir, "threeviews")
+        joints_dir = os.path.join(out_dir, "joints")
+        vol, output, feature = (host_array(t) for t in (
+            batch["vol"], heatmaps, refine))
+        gt = host_array(batch["joints"][0]).reshape(-1, 3)
+
+        for tag, v in (("volume", vol), ("output", output),
+                       ("feature", feature)):
+            volume_log(v, vol_dir, f"{tag}_{global_iter}", global_iter,
+                       joints=gt)
+        joints_log(host_array(preds[0]).reshape(-1, 3), joints_dir,
+                   f"pred_joints_{global_iter}")
+        joints_log(gt, joints_dir, f"gt_joints_{global_iter}")
+        for tag, v in (("feature", feature), ("output", output),
+                       ("volume", vol)):
+            threeviews_log(v, tv_dir, f"{tag}_{global_iter}", global_iter)
+
+        if writer is not None:
+            from hiddenpose_tpu_torch.utils.jax_bridge import to_jax
+
+            def walk(node, path):  # in the JAX tree's (sorted) order
+                for k, v in sorted(node.items()):
+                    if isinstance(v, dict):
+                        yield from walk(v, (*path, k))
+                    else:
+                        yield "/".join((*path, k)), v
+
+            tree = to_jax(dict(model.named_parameters()))
+            for tag, leaf in walk(tree, ()):
+                writer.histogram(f"params/{tag}", leaf, global_iter)
+    except Exception as e:  # figures are best-effort
+        logging.getLogger("hiddenpose").warning(f"viz failed: {e}")

@@ -39,6 +39,14 @@ packages' loops can start from one optimizer state; :func:`load_adam`
 does it for a bare ``torch.optim.Adam`` from moments keyed by the port's
 names (the SimDR and 2D-heatmap steps take an optimizer, not a state).
 
+The other models have their tables too, each a list of entries that
+:func:`layout_state_dict_from_jax` and :func:`layout_to_jax` walk: a
+``PoseNet3D`` alone, either block, either stem (:func:`posenet3d_layout`:
+the JAX stem that is not the fused one keeps a flax ``bn1`` beside
+``conv1``), a ``FeatureExtraction`` of either stride or a
+``Transient2Volumn`` (:func:`dual_branch_layout`), and ``DeepVoxels``
+(:func:`deepvoxels_layout`).
+
 The transformer family (``NlosPoseSformer``, ``TimeSformer`` and
 ``TokenPose``) has no table: its port names are the flax paths joined by
 dots, so the map is a walk of the tree (:func:`sformer_state_dict_from_jax`
@@ -133,17 +141,76 @@ def posenet2d_layout(name="", path=(), layers=_RESNET50_LAYERS,
     return out
 
 
+def dual_branch_layout(name: str, path: Tuple[str, ...]) -> List[Entry]:
+    """A ``FeatureExtraction`` (either stride) or ``Transient2Volumn``
+    under the port name ``name`` and the JAX path ``path``: the learned
+    branch's first conv ``conv_in`` (``conv1.1``), the two ``ResConv3D``
+    (``conv1.{2,3}.tmp.{1,4}``) and the corner kernel (``weights``)."""
+    out: List[Entry] = []
+    _conv(out, f"{name}.conv1.1", (*path, "conv_in"))
+    for i, res in ((2, "res1"), (3, "res2")):
+        _conv(out, f"{name}.conv1.{i}.tmp.1", (*path, res, "conv1"))
+        _conv(out, f"{name}.conv1.{i}.tmp.4", (*path, res, "conv2"))
+    out.append((f"{name}.weights", "params", (*path, "corner_kernel"),
+                "conv"))
+    return out
+
+
+def deepvoxels_layout() -> List[Entry]:
+    """Every tensor of the port's ``DeepVoxels`` (its ``Transient2Volumn``
+    ``downnet``)."""
+    return dual_branch_layout("downnet", ("downnet",))
+
+
+def posenet3d_layout(name: str = "", path: Tuple[str, ...] = (),
+                     layers=_RESNET50_LAYERS, block: str = "bottleneck",
+                     s2d_stem: bool = True) -> List[Entry]:
+    """Every tensor of the port's ``PoseNet3D`` under the port name
+    ``name`` and the JAX path ``path`` (the network alone when empty).
+    ``s2d_stem``: whether the JAX model took its fused stem (``StemS2D``
+    keeps bn1 inside the conv1 scope as ``bn_scale`` ... ``bn_var``); its
+    other stem has ``conv1`` and a flax ``bn1``.  ``block`` 'basic' has
+    conv1 / conv2 a block; a projection (``conv_proj`` / ``bn_proj``, the
+    port's ``downsample.{0,1}``) where a stage's first block changes the
+    stride or the width."""
+    out: List[Entry] = []
+    pre = f"{name}." if name else ""
+    _conv(out, f"{pre}conv1", (*path, "conv1"), bias=False)
+    if s2d_stem:
+        _bn(out, f"{pre}bn1", (*path, "conv1"), (*path, "conv1"),
+            ("bn_scale", "bn_bias", "bn_mean", "bn_var"))
+    else:
+        _bn(out, f"{pre}bn1", (*path, "bn1"), (*path, "bn1"), _BN_KEYS)
+    expansion = 4 if block == "bottleneck" else 1
+    convs = (1, 2, 3) if block == "bottleneck" else (1, 2)
+    for stage, blocks in enumerate(layers, start=1):
+        for b in range(blocks):
+            bname, bpath = f"{pre}layer{stage}.{b}", (*path,
+                                                     f"layer{stage}_{b}")
+            for i in convs:
+                _conv(out, f"{bname}.conv{i}", (*bpath, f"conv{i}"),
+                      bias=False)
+                _bn(out, f"{bname}.bn{i}", (*bpath, f"bn{i}"),
+                    (*bpath, f"bn{i}"), _BN_KEYS)
+            if b == 0 and (stage > 1 or expansion != 1):
+                _conv(out, f"{bname}.downsample.0", (*bpath, "conv_proj"),
+                      bias=False)
+                _bn(out, f"{bname}.downsample.1", (*bpath, "bn_proj"),
+                    (*bpath, "bn_proj"), _BN_KEYS)
+    hp = (*path, "head")
+    for i in range(_DECONV_LAYERS):
+        out.append((f"{pre}head.features.{3 * i}.weight", "params",
+                    (*hp, f"deconv{i + 1}", "kernel"), "deconv"))
+        _bn(out, f"{pre}head.features.{3 * i + 1}", (*hp, f"bn{i + 1}"),
+            (*hp, f"bn{i + 1}"), _BN_KEYS)
+    _conv(out, f"{pre}head.features.{3 * _DECONV_LAYERS}", (*hp, "final"))
+    return out
+
+
 def _layout(backbone: str = "posenet3d_50") -> List[Entry]:
     """Every tensor of the port's NlosPose (basedim 1) and where it lives
     in the JAX variables."""
-    out: List[Entry] = []
-    fe, fep = "feature_extraction", ("feature_extraction",)
-    _conv(out, f"{fe}.conv1.1", (*fep, "conv_in"))
-    for i, res in ((2, "res1"), (3, "res2")):
-        _conv(out, f"{fe}.conv1.{i}.tmp.1", (*fep, res, "conv1"))
-        _conv(out, f"{fe}.conv1.{i}.tmp.4", (*fep, res, "conv2"))
-    out.append((f"{fe}.weights", "params", (*fep, "corner_kernel"), "conv"))
-
+    out = dual_branch_layout("feature_extraction", ("feature_extraction",))
     ae, aep = "autoencoder", ("autoencoder",)
     _double_conv(out, f"{ae}.conv.double_conv", (*aep, "conv"))
     for i in range(1, 5):
@@ -152,32 +219,9 @@ def _layout(backbone: str = "posenet3d_50") -> List[Entry]:
         _double_conv(out, f"{ae}.dec{i}.conv.double_conv", (*aep, f"dec{i}"))
     _conv(out, f"{ae}.out.conv", (*aep, "out"))
 
-    pn, pnp = "pose_net", ("pose_net",)
     if backbone == "posenet2d":
-        return out + posenet2d_layout(pn, pnp)
-    _conv(out, f"{pn}.conv1", (*pnp, "conv1"), bias=False)
-    _bn(out, f"{pn}.bn1", (*pnp, "conv1"), (*pnp, "conv1"),
-        ("bn_scale", "bn_bias", "bn_mean", "bn_var"))
-    for stage, blocks in enumerate(_RESNET50_LAYERS, start=1):
-        for b in range(blocks):
-            name, path = f"{pn}.layer{stage}.{b}", (*pnp, f"layer{stage}_{b}")
-            for i in (1, 2, 3):
-                _conv(out, f"{name}.conv{i}", (*path, f"conv{i}"), bias=False)
-                _bn(out, f"{name}.bn{i}", (*path, f"bn{i}"),
-                    (*path, f"bn{i}"), _BN_KEYS)
-            if b == 0:  # every stage's first block projects (ResNet-50)
-                _conv(out, f"{name}.downsample.0", (*path, "conv_proj"),
-                      bias=False)
-                _bn(out, f"{name}.downsample.1", (*path, "bn_proj"),
-                    (*path, "bn_proj"), _BN_KEYS)
-    hp = (*pnp, "head")
-    for i in range(_DECONV_LAYERS):
-        out.append((f"{pn}.head.features.{3 * i}.weight", "params",
-                    (*hp, f"deconv{i + 1}", "kernel"), "deconv"))
-        _bn(out, f"{pn}.head.features.{3 * i + 1}", (*hp, f"bn{i + 1}"),
-            (*hp, f"bn{i + 1}"), _BN_KEYS)
-    _conv(out, f"{pn}.head.features.{3 * _DECONV_LAYERS}", (*hp, "final"))
-    return out
+        return out + posenet2d_layout("pose_net", ("pose_net",))
+    return out + posenet3d_layout("pose_net", ("pose_net",))
 
 
 def _to_port(a, kind) -> torch.Tensor:
@@ -268,8 +312,10 @@ def _from_layout(tree: Mapping, layout: List[Entry],
     return out
 
 
-def _to_layout(named: Mapping[str, torch.Tensor], layout: List[Entry],
-               collection: str) -> Dict:
+def layout_to_jax(named: Mapping[str, torch.Tensor], layout: List[Entry],
+                  collection: str = "params") -> Dict:
+    """{port name: tensor} of the module that ``layout`` describes -> the
+    JAX tree of ``collection``."""
     tree: Dict = {}
     for name, coll, path, kind in layout:
         if coll != collection:
@@ -304,7 +350,7 @@ def to_jax(named: Mapping[str, torch.Tensor],
     or Adam's ``exp_avg``) -> the nested dict of numpy arrays shaped like
     the JAX NlosPose's ``collection``.  Every name of the collection must
     be there."""
-    return _to_layout(named, _layout(_backbone(named)), collection)
+    return layout_to_jax(named, _layout(_backbone(named)), collection)
 
 
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -329,8 +375,18 @@ def posenet2d_to_jax(named: Mapping[str, torch.Tensor],
                      block="bottleneck") -> Dict:
     """{port name: tensor} of a ``ResPoseNet2D`` alone -> the JAX tree of
     ``collection``."""
-    return _to_layout(named, posenet2d_layout(layers=layers, block=block),
+    return layout_to_jax(named, posenet2d_layout(layers=layers, block=block),
                       collection)
+
+
+def layout_state_dict_from_jax(variables: Mapping, layout: List[Entry]
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX variables of the module that ``layout`` describes
+    (``posenet3d_layout``, ``dual_branch_layout``, ``deepvoxels_layout``;
+    ``{"params"}``, and ``"batch_stats"`` where it has BatchNorms) -> the
+    port module's state_dict."""
+    variables = {"batch_stats": {}, **variables}
+    return _state_dict(variables, layout)
 
 
 def load_adam(optimizer: torch.optim.Adam,

@@ -29,6 +29,7 @@ from hiddenpose_tpu_torch.ops.kernels.attn import (
     attend,
     attend_3xtf32_ref,
     attend_diff,
+    attend_online_ref,
     attend_ref,
     attend_split_ref,
     attend_routed,
@@ -285,6 +286,80 @@ def test_split_matches_jax_reference_at_a_joint_token_read_shape(splits):
     np.testing.assert_allclose(got, want, **ATTN_F32_TOL)
     np.testing.assert_allclose(attend(_t(q), _t(k), _t(v)).numpy(), want,
                                **ATTN_F32_TOL)
+
+
+def _attend_tile_loop(q, k, v, chunk):
+    """The kernel's loop written out: per chunk, 64-key tiles, a running
+    max in base-2 units, acc = acc * 2^(m - n) + round(p) v, then the
+    chunks combined; the output before its cast, float32."""
+    lk = k.shape[1]
+    ms, ls, accs = [], [], []
+    for c0 in range(0, lk, chunk):
+        m = l = acc = None
+        for t0 in range(c0, min(c0 + chunk, lk), 64):
+            s = torch.bmm(q.double(), k[:, t0:t0 + 64].double()
+                          .transpose(1, 2)).float()
+            n = s.amax(-1, keepdim=True) * 1.4426950408889634
+            n = n if m is None else torch.maximum(m, n)
+            p = torch.exp2(s * 1.4426950408889634 - n)
+            part = torch.bmm(p.to(v.dtype).float(),
+                             v[:, t0:t0 + 64].float())
+            if m is None:
+                acc, l = part, p.sum(-1, keepdim=True)
+            else:
+                sc = torch.exp2(m - n)
+                acc, l = acc * sc + part, l * sc + p.sum(-1, keepdim=True)
+            m = n
+        ms.append(m), ls.append(l), accs.append(acc)
+    top = torch.stack(ms).amax(0)
+    w = [torch.exp2(m_s - top) for m_s in ms]
+    return (sum(w_ * a for w_, a in zip(w, accs))
+            / sum(w_ * l_ for w_, l_ in zip(w, ls)))
+
+
+# (B, Lq, Lk, dh), chunk: one chunk (a ragged last tile), chunks of two
+# tiles with a short last chunk, chunks of three tiles at head dim 16
+ONLINE_CASES = [((2, 24, 300, 32), None), ((2, 40, 301, 32), 128),
+                ((1, 24, 1000, 16), 192)]
+
+
+@pytest.mark.parametrize("shape,chunk", ONLINE_CASES)
+def test_online_order_equals_plain(shape, chunk):
+    """The kernel's order is the same function: float32 within the plain
+    version's tolerance, a bf16 v within one bf16 ulp of it."""
+    q, k, v = (_t(a) for a in _qkv(shape, 11))
+    got = attend_online_ref(q, k, v, chunk)
+    np.testing.assert_allclose(got.numpy(), attend_ref(q, k, v).numpy(),
+                               **ATTN_F32_TOL)
+    vb = v.to(torch.bfloat16)
+    got = attend_online_ref(q, k, vb, chunk)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), attend_ref(q, k, vb).float(),
+                               rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("chunk", [None, 128])
+def test_online_order_rounds_where_the_kernel_loop_does(chunk):
+    """Scores that rise along the keys, so that the running max moves at
+    every tile: with a bf16 v the kernel-order version agrees with the
+    kernel's loop written out to float32 rounding (the bf16 outputs equal
+    at 99% of the elements at least, the rest within one bf16 ulp, as
+    the other bf16-v tests hold them), where the final-max form
+    (``attend_3xtf32_ref``) rounds p differently at many of them."""
+    shape = (2, 32, 512, 32)
+    q, k, v = (_t(a) for a in _qkv(shape, 12))
+    ramp = torch.linspace(0, 6, shape[2])[None, :, None]
+    k = k + ramp * q.mean(dim=1, keepdim=True).sign() / shape[3] ** 0.5
+    vb = v.to(torch.bfloat16)
+    want = _attend_tile_loop(q, k, vb, chunk or shape[2])
+    got = attend_online_ref(q, k, vb, chunk)
+    final_max = attend_3xtf32_ref(q, k, vb)
+    want = want.to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+    same = (got == want).float().mean().item()
+    other = (final_max == want).float().mean().item()
+    assert same >= 0.99 and other < same, (same, other)
 
 
 def test_kernel_is_registered():

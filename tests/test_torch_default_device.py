@@ -24,11 +24,14 @@ from hiddenpose_tpu_torch.cli import train as cli_train
 from hiddenpose_tpu_torch.config import Config
 from hiddenpose_tpu_torch.data.dataset import SyntheticSource
 from hiddenpose_tpu_torch.eval.harness import evaluate
+from hiddenpose_tpu_torch.models.deepvoxels import build_deepvoxels
 from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+from hiddenpose_tpu_torch.models.posenet3d import build_posenet3d
 from hiddenpose_tpu_torch.models.sformer import build_sformer
 from hiddenpose_tpu_torch.models.timesformer import build_timesformer
 from hiddenpose_tpu_torch.models.tokenpose import build_tokenpose
 from hiddenpose_tpu_torch.ops.lct import make_lct_params
+from hiddenpose_tpu_torch.ops.resample import MultiViewResampler
 from hiddenpose_tpu_torch.serve import InferenceServer
 from hiddenpose_tpu_torch.train.loop import train
 from hiddenpose_tpu_torch.train.state import TrainState
@@ -91,6 +94,13 @@ ENTRY_POINTS = {
     "build_nlospose posenet2d": lambda **kw: next(build_nlospose(
         dataclasses.replace(CFG.model, backbone="posenet2d"),
         **kw)[0].parameters()).device,
+    "build_deepvoxels": lambda **kw: next(build_deepvoxels(
+        basedim=2, image_size=8, time_size=8, **kw)[0].parameters()).device,
+    "build_posenet3d basic": lambda **kw: next(build_posenet3d(
+        block="basic", layers=(1, 1, 1, 1), widths=(8, 8, 8, 8),
+        conv1_t_stride=2, no_max_pool=True, **kw).parameters()).device,
+    "MultiViewResampler": lambda **kw: MultiViewResampler(
+        4, 4, 2.0, **kw).view_grids.device,
     "build_tokenpose": lambda **kw: next(
         build_tokenpose(**TP_KW, **kw).parameters()).device,
     "InferenceServer": _server,

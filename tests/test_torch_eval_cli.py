@@ -187,9 +187,11 @@ def test_cli_train_then_test_on_the_cpu(tmp_path):
         assert r.returncode == 0, r.stderr[-3000:]
         assert f"restored {ck}/epoch_0 (epoch 0)" in r.stdout
         assert "MPJPE (heatmap voxels):" in r.stdout
+        # each skeleton's .txt and, as the JAX command draws it, its png
         files = sorted(os.listdir(os.path.join(out, "joints")))
-        assert files == sorted(f"{p}_synthetic-{410 + i}.txt"
-                               for p in ("gt", "preds") for i in range(4))
+        assert files == sorted(f"{p}_synthetic-{410 + i}.{e}"
+                               for p in ("gt", "preds") for i in range(4)
+                               for e in ("png", "txt"))
         joints = np.loadtxt(os.path.join(out, "joints", files[-1]))
         assert joints.shape == (24, 3) and np.isfinite(joints).all()
     finally:

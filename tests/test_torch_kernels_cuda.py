@@ -742,6 +742,30 @@ def test_attend_ragged_all_dtype_pairs_repeat_bit_for_bit(dev, shape, dtypes):
                                    atol=2e-3)
 
 
+@pytest.mark.parametrize("qk_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 130, 333, 32), (2, 24, 9001, 32)])
+def test_attend_bf16_v_rounds_in_its_online_order(dev, shape, qk_dtype):
+    """With a bf16 v the tensor-core form (head dim 32) rounds the
+    unnormalised probability against its running max; ``attend_online_ref``
+    on the kernel's chunks (``attend_chunk``; the second shape is split
+    over the keys) rounds at the same points: the outputs are equal at 99%
+    of the elements at least, the rest within one bf16 ulp (float32
+    rounding, the sums' order and ex2.approx, flips a few)."""
+    from hiddenpose_tpu_torch.ops.kernels import attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(np.random.RandomState(20), shape, dev)
+    q, k, v = q.to(qk_dtype), k.to(qk_dtype), v.bfloat16()
+    b, lq, lk, dh = shape
+    got = K.attend(q, k, v)
+    want = attn.attend_online_ref(q, k, v, attn.attend_chunk(b, lq, lk, dh))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+    equal = (got == want).float().mean().item()
+    assert equal >= 0.99, equal
+
+
 @pytest.mark.parametrize("shape", [(2, 130, 333, 32), (2, 24, 9001, 32),
                                    (2, 77, 203, 64)])
 def test_attend_f32_against_float64(dev, shape):

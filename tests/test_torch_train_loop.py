@@ -207,8 +207,22 @@ def test_train_loop_aborts_on_nonfinite_loss(tmp_path):
 
 
 def test_viz_every_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train(_cfg(tmp_path), viz_every=10, device="cpu")
+    """(The name predates the figures' port.)  ``viz_every`` draws the
+    JAX loop's figures of the interval's batch under ``result_dir``
+    (``tests/test_torch_viz.py`` holds them and ``viz_histograms``'
+    histograms against the JAX loop's)."""
+    cfg = dataclasses.replace(_cfg(tmp_path, end_epoch=1),
+                              result_dir=str(tmp_path / "result"))
+    result = train(cfg, source=SyntheticSource(cfg, length=2),
+                   workdir=str(tmp_path / "ckpt"), max_steps_per_epoch=1,
+                   viz_every=1, device="cpu")
+    assert result.epochs_run == 1
+    fig = tmp_path / "result" / "figure"
+    assert sorted(os.listdir(fig / "volume")) == sorted(
+        f"{t}_1.png" for t in ("volume", "output", "feature"))
+    assert sorted(os.listdir(fig / "joints")) == sorted(
+        f"{t}_joints_1.{e}" for t in ("pred", "gt") for e in ("png", "txt"))
+    assert len(os.listdir(fig / "threeviews")) == 3
 
 
 def test_autoencoder_save_load_round_trip(tmp_path):
