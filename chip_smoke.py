@@ -641,9 +641,16 @@ K2_RAGGED = [(5, 6, 7), (9, 17, 33), (12, 20, 36)]
 # path an odd extent on every axis.
 POOL2_SHAPES = [(4, 128), (8, 64), (16, 32), (32, 16)]
 POOL2_ODD = (1, 3, 5, 7, 9)
+# K1 launches of one t128 forward.  In a train step FeatureExtraction and
+# the UNet run their forward twice, the second time in the backward
+# (``cfg.stage_remat``, the default: ``utils/remat.py``), so K1
+# launches STAGE_RUNS times its forward count; K5, K6 and K8 (backward)
+# once.
+K1_PER_FORWARD = sum(r[6] for r in K1_SHAPES)
+STAGE_RUNS = 2
 # Launches of each kernel in one t128 train step, by the shapes above.
 TRAIN_PER_STEP = {
-    "conv3_planes": sum(r[6] for r in K1_SHAPES),
+    "conv3_planes": STAGE_RUNS * K1_PER_FORWARD,
     "conv3_planes_adjoint": sum(r[6] for r in K1_SHAPES if r[7]),
     "conv3_planes_wgrad": sum(r[6] for r in K1_SHAPES),
     "maxpool3d_k3s2p1": 1, "maxpool3d_k3s2p1_vjp": 1,
@@ -659,9 +666,10 @@ TRAIN_DEFAULT_PER_STEP = dict(TRAIN_PER_STEP, conv3_mxu=0, conv3_mxu_dx=0,
                               conv3_mxu_dx_bf16=TRAIN_PER_STEP["conv3_mxu_dx"])
 TRAIN_BF16_PER_STEP = dict(
     TRAIN_DEFAULT_PER_STEP,
-    conv3_planes=sum(K1_SHAPES[i][6] for i in K1_F32_INPUT_TRAIN),
-    conv3_planes_bf16=TRAIN_PER_STEP["conv3_planes"] - sum(
-        K1_SHAPES[i][6] for i in K1_F32_INPUT_TRAIN),
+    conv3_planes=STAGE_RUNS * sum(K1_SHAPES[i][6]
+                                  for i in K1_F32_INPUT_TRAIN),
+    conv3_planes_bf16=STAGE_RUNS * (K1_PER_FORWARD - sum(
+        K1_SHAPES[i][6] for i in K1_F32_INPUT_TRAIN)),
     maxpool3d_k3s2p1=0, maxpool3d_k3s2p1_bf16=1)
 
 
@@ -719,7 +727,7 @@ def phase_kernels(dev):
             library_fn=lambda: F.conv3d(xp, w, bias),
             moved=nbytes(x, k, bias, r) + out_bytes, ops=flop, repeats=True,
             slower=slower)
-        row["per_forward"] = row["per_step"] = count
+        row.update(per_forward=count, per_step=STAGE_RUNS * count)
         rows["conv3_planes"].append(row)
 
         dz = randn(vol[0], cout, *dhw)
@@ -2754,7 +2762,7 @@ TOKENPOSE_TOL = 1e-4
 POSENET2D_PER_STEP = dict(TRAIN_PER_STEP, maxpool3d_k3s2p1=0,
                           maxpool3d_k3s2p1_vjp=0, conv3_mxu=0,
                           conv3_mxu_dx=0)
-POSENET2D_PER_FORWARD = {"conv3_planes": TRAIN_PER_STEP["conv3_planes"]}
+POSENET2D_PER_FORWARD = {"conv3_planes": K1_PER_FORWARD}
 
 
 def _param_step(model, step_fn, use_kernels=True):
@@ -3786,6 +3794,675 @@ def phase_models(dev, smi):
     return out, counts
 
 
+# Phase 14 (the parallel paths, the remat knobs, posenet2d in bf16, the
+# graft entry points).  14a: the data-parallel step on a one-rank NCCL
+# mesh against the step without a mesh, at 'highest' within TRAIN_* and
+# at 'default' within DEFAULT_* (phase 6's and 10's limits: the step's
+# BatchNorm then takes its moments through two all-reduces, in another
+# order than cuDNN's batch norm).  14b: each knob on against all off at
+# 'highest', within TRAIN_*; the buffers updated once.  14c: the sharded
+# LCT on a (1, 1) mesh against lct_apply, forward and VJP, at the JAX
+# package's limits (rtol 2e-4, atol 2e-5 of the largest value).  14d's
+# limits are the plain path's own spread: REMAT_BATCH_LIMIT caps the batch
+# search of 14b.
+SHARDED_LCT_TOL = (2e-4, 2e-5)
+KNOBS = {
+    "off": dict(stage_remat=False, posenet_remat=False,
+                posenet_remat_stem=False),
+    "stage_remat": dict(stage_remat=True, posenet_remat=False,
+                        posenet_remat_stem=False),
+    "posenet_remat": dict(stage_remat=False, posenet_remat=True,
+                          posenet_remat_stem=False),
+    "posenet_remat_stem": dict(stage_remat=False, posenet_remat=False,
+                               posenet_remat_stem=True),
+    "all": dict(stage_remat=True, posenet_remat=True,
+                posenet_remat_stem=True),
+}
+REMAT_BATCH_LIMIT = 64
+# Launches of a train step with each knob: the recompute launches the
+# kernels of what it recomputes once more (K1 in FeatureExtraction and the
+# UNet with stage_remat, K4 in the Bottlenecks with posenet_remat, K3 in
+# the stem with posenet_remat_stem).
+_K4_STEP = sum(r[2] for r in K4_SHAPES)
+
+
+def _knob_per_step(knobs):
+    return dict(
+        TRAIN_PER_STEP,
+        conv3_planes=(1 + knobs["stage_remat"]) * K1_PER_FORWARD,
+        conv3_mxu=(1 + knobs["posenet_remat"]) * _K4_STEP,
+        maxpool3d_k3s2p1=1 + knobs["posenet_remat_stem"])
+
+
+def _set_knobs(model, knobs):
+    """The knobs of a built model, in place: NlosPose reads
+    ``cfg.stage_remat`` and its PoseNet3D ``remat`` / ``remat_stem`` at
+    each forward."""
+    import dataclasses
+
+    model.cfg = dataclasses.replace(model.cfg, **knobs)
+    model.pose_net.remat = knobs["posenet_remat"]
+    model.pose_net.remat_stem = knobs["posenet_remat_stem"]
+
+
+def _fits(model, lct, weights, batch2, b, precision):
+    """Peak memory of one t128 step at batch ``b`` (batch2 tiled), or None
+    when it runs out of the card's memory."""
+    import gc
+
+    from hiddenpose_tpu_torch.config import TrainConfig
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
+
+    batch = {k: v.repeat(b // 2, *([1] * (v.dim() - 1)))
+             for k, v in batch2.items()}
+    model.load_state_dict(weights)
+    state = TrainState.create(model, TrainConfig())
+    dev = batch["meas"].device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        make_train_step(model, precision)(state, batch, lct)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev)
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        model.zero_grad(set_to_none=True)
+        del state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _largest_batch(model, lct, weights, batch2, precision, tag):
+    """The largest even t128 batch whose step fits: the peaks at 2 and 4
+    extrapolated, then confirmed (it fits, 2 more does not)."""
+    p2 = _fits(model, lct, weights, batch2, 2, precision)
+    p4 = _fits(model, lct, weights, batch2, 4, precision)
+    total = torch.cuda.get_device_properties(batch2["meas"].device)\
+        .total_memory
+    b = int(2 + 2 * (total - p2) // max(p4 - p2, 1))
+    b = max(2, min(REMAT_BATCH_LIMIT, b - b % 2))
+    tries = {2: p2, 4: p4}
+    while b > 2 and tries.setdefault(
+            b, _fits(model, lct, weights, batch2, b, precision)) is None:
+        b -= 2
+    while b < REMAT_BATCH_LIMIT and tries.setdefault(
+            b + 2, _fits(model, lct, weights, batch2, b + 2,
+                         precision)) is not None:
+        b += 2
+    log(f"[14b remat] {tag}: peak {p2 / 2**30:.3f} GiB at b2, "
+        f"{p4 / 2**30:.3f} at b4; largest batch that fits {b} "
+        f"({tries[b] / 2**30:.3f} GiB; tried "
+        f"{ {k: (None if v is None else round(v / 2**30, 3)) for k, v in sorted(tries.items())} })")
+    return dict(peak_b2=p2, peak_b4=p4, largest_batch=b,
+                peak_largest=tries[b],
+                tried={k: v for k, v in sorted(tries.items())})
+
+
+def _median_step_ms(step, model, weights, batch, lct, runs=3):
+    """Median ms of ``runs`` steps from fresh states (after one warm-up),
+    and the peak memory of one."""
+    from hiddenpose_tpu_torch.config import TrainConfig
+    from hiddenpose_tpu_torch.train.state import TrainState
+
+    out = []
+    dev = batch["meas"].device
+    for i in range(runs + 1):
+        model.load_state_dict(weights)
+        st = TrainState.create(model, TrainConfig())
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, _ = _event_ms(lambda: step(st, batch, lct))
+        if i:
+            out.append(ms)
+    return float(np.median(out)), torch.cuda.max_memory_allocated(dev)
+
+
+def phase_parallel(dev, smi):
+    """14: the data-parallel step on a one-rank NCCL mesh, the remat knobs,
+    the sharded LCT, posenet2d in bf16, and the graft entry points."""
+    import torch.distributed as dist
+
+    from hiddenpose_tpu_torch.config import t128_config
+    from hiddenpose_tpu_torch.data.synthetic import make_batch
+    from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.parallel.distributed import free_port
+    from hiddenpose_tpu_torch.parallel.mesh import make_mesh
+    from hiddenpose_tpu_torch.train.step import make_train_step
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0)
+    out, counts = {}, {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    try:
+        mesh = make_mesh(1, 1)
+        log(f"[14a dp] NCCL mesh (data {mesh.n_data} x model {mesh.n_model})"
+            f" on {mesh.device}, backend {dist.get_backend()}")
+        cfg = t128_config()
+        m = cfg.model
+        weights = t128_weights(cfg)
+        model, lct = build_nlospose(m, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            [0, 1], m.time_size, m.image_size[0], m.grid_dim,
+            m.heatmap_size[0], m.bin_len).items()}
+
+        # 14a: the data-parallel step against the step without a mesh
+        dp = {}
+        for precision, per_step, tols in (
+                ("highest", TRAIN_PER_STEP, (TRAIN_LOSS_TOL,
+                                             TRAIN_GRAD_L2_TOL,
+                                             TRAIN_STATS_TOL,
+                                             TRAIN_PARAM_TOL,
+                                             TRAIN_SIGN_AGREE)),
+                ("default", TRAIN_DEFAULT_PER_STEP, (DEFAULT_LOSS_TOL,
+                                                     DEFAULT_GRAD_L2_TOL,
+                                                     DEFAULT_STATS_TOL,
+                                                     None,
+                                                     DEFAULT_SIGN_AGREE))):
+            on = make_train_step(model, precision, mesh=mesh)
+            off = make_train_step(model, precision)
+            r = _train_readings(
+                _step_result(model, weights, on, batch, lct, True),
+                _step_result(model, weights, off, batch, lct, True))
+            _log_readings("14a dp", f"'{precision}': the step on the mesh vs"
+                          " without", r)
+            ok = (max(r["loss_rel"].values()) <= tols[0]
+                  and max(r["grad_rel_l2"].values()) <= tols[1]
+                  and r["stats_max_rel"] <= tols[2]
+                  and (tols[3] is None or r["param_max_abs"] <= tols[3])
+                  and r["sign_agree"] >= tols[4])
+            if not ok:
+                raise RuntimeError(f"14a: the data-parallel step at "
+                                   f"'{precision}' is off")
+            K.reset_launch_counts()
+            ms_on, peak_on = _median_step_ms(on, model, weights, batch, lct)
+            c = K.launch_counts()
+            if c != {k: 4 * per_step.get(k, 0) for k in c}:
+                raise RuntimeError(f"14a: launch counts {c} over 4 steps, "
+                                   f"expected 4 x {per_step}")
+            add(c)
+            ms_off, peak_off = _median_step_ms(off, model, weights, batch,
+                                               lct)
+            ms_on2, _ = _median_step_ms(on, model, weights, batch, lct)
+            dp[precision] = dict(readings=r, ms_mesh=[ms_on, ms_on2],
+                                 ms_no_mesh=ms_off, peak_mesh=peak_on,
+                                 peak_no_mesh=peak_off)
+            log(f"[14a dp] '{precision}': step ms on the mesh {ms_on:.2f} / "
+                f"{ms_on2:.2f}, without {ms_off:.2f} (adds "
+                f"{(ms_on + ms_on2) / 2 - ms_off:+.2f} ms); peak "
+                f"{peak_on / 2**30:.3f} / {peak_off / 2**30:.3f} GiB  [{smi}]")
+        out["14a"] = dp
+
+        # 14b: each remat knob against all off, at 'highest'
+        step = make_train_step(model, "highest")
+        knobs = {}
+        _set_knobs(model, KNOBS["off"])
+        base = _step_result(model, weights, step, batch, lct, True)
+        for name, kn in KNOBS.items():
+            _set_knobs(model, kn)
+            tracked = {n: int(b) for n, b in weights.items()
+                       if n.endswith("num_batches_tracked")}
+            res = _step_result(model, weights, step, batch, lct, True)
+            once = all(int(model.state_dict()[n]) == v + 1
+                       for n, v in tracked.items())
+            r = _train_readings(res, base) if name != "off" else None
+            K.reset_launch_counts()
+            ms, peak = _median_step_ms(step, model, weights, batch, lct,
+                                       runs=2)
+            c = K.launch_counts()
+            want = _knob_per_step(kn)
+            if c != {k: 3 * want.get(k, 0) for k in c} or not once:
+                raise RuntimeError(f"14b {name}: launch counts {c} over 3 "
+                                   f"steps (expected 3 x {want}); buffers "
+                                   f"updated once: {once}")
+            add(c)
+            knobs[name] = dict(ms=ms, peak_memory_bytes=peak, readings=r,
+                               launches_per_step={k: v // 3
+                                                  for k, v in c.items()})
+            if r is not None:
+                _log_readings("14b remat", f"{name} vs all off", r)
+                ok = (max(r["loss_rel"].values()) <= TRAIN_LOSS_TOL
+                      and max(r["grad_rel_l2"].values()) <= TRAIN_GRAD_L2_TOL
+                      and r["stats_max_rel"] <= TRAIN_STATS_TOL
+                      and r["param_max_abs"] <= TRAIN_PARAM_TOL
+                      and r["sign_agree"] >= TRAIN_SIGN_AGREE)
+                if not ok:
+                    raise RuntimeError(f"14b: {name} changes the step")
+            log(f"[14b remat] {name}: step {ms:.2f} ms (median of 2), peak "
+                f"{peak / 2**30:.3f} GiB, buffers updated once: {once}  "
+                f"[{smi}]")
+        for name in ("off", "all"):
+            _set_knobs(model, KNOBS[name])
+            knobs[f"largest_batch_{name}"] = _largest_batch(
+                model, lct, weights, batch, "default", f"knobs {name}, "
+                "'default'")
+        _set_knobs(model, KNOBS["stage_remat"])  # the default
+        out["14b"] = knobs
+        del model
+        torch.cuda.empty_cache()
+
+        # 14c: the sharded LCT on the one-rank mesh
+        out["14c"] = _sharded_lct_rows(dev, mesh, lct)
+        # 14d: posenet2d in bf16
+        d, c = _posenet2d_bf16(dev, smi)
+        out["14d"] = d
+        add(c)
+    finally:
+        dist.destroy_process_group()
+    # 14e: the port's entry() and dryrun_multichip(1) (a process of its own)
+    e, c = _entry_points(dev, smi)
+    out["14e"] = e
+    add(c)
+    return out, counts
+
+
+def _sharded_lct_rows(dev, mesh, lct):
+    """14c: ``lct_apply_sharded`` on ``mesh`` against ``lct_apply`` at the
+    t128 train step's LCT call (b2 x basedim 1), forward and VJP."""
+    from hiddenpose_tpu_torch.ops.lct import lct_apply, lct_apply_sharded
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    n = lct.image_size
+    x = torch.rand((2, lct.time_size, n, n), generator=g, device=dev)
+    w = torch.randn(x.shape, generator=g, device=dev)
+    res = {}
+    for name, fn in (("plain", lambda v: lct_apply(v, lct)),
+                     ("sharded", lambda v: lct_apply_sharded(v, lct, mesh))):
+        v = x.clone().requires_grad_(True)
+        with deterministic():
+            y = fn(v)
+            (y * w).sum().backward()
+        ms, _ = _event_ms(lambda: fn(x))
+        res[name] = (y.detach(), v.grad, ms)
+    rtol, atol = SHARDED_LCT_TOL
+    errs = {}
+    for i, what in ((0, "out"), (1, "vjp")):
+        got, want = res["sharded"][i], res["plain"][i]
+        err = (got - want).abs()
+        lim = atol * float(want.abs().max()) + rtol * want.abs()
+        errs[what] = dict(max_abs=float(err.max()),
+                          max_rel_of_max=float(err.max()
+                                               / want.abs().max()),
+                          ok=bool((err <= lim).all()))
+    log(f"[14c sharded lct] (1, 1) mesh vs lct_apply at (2, {lct.time_size},"
+        f" {n}, {n}): {errs}; forward ms {res['sharded'][2]:.3f} vs "
+        f"{res['plain'][2]:.3f}")
+    if not all(e["ok"] for e in errs.values()):
+        raise RuntimeError("14c: the sharded LCT disagrees with lct_apply")
+    return dict(errors=errs, ms_sharded=res["sharded"][2],
+                ms_plain=res["plain"][2])
+
+
+# 14d: the posenet2d NlosPose in bf16, f32 parameters cast at use.  Its
+# serving forward with the kernels against the plain versions, by heatmap
+# RMS and joints, within POSENET2D_BF16_SPREAD x the plain bf16 forward's
+# own distance from the f32 forward on the same weights (two bf16
+# forwards that round independently lie about sqrt(2) x that apart), and
+# its heatmaps at least POSENET2D_BF16_AWAY x that distance from f32 (it
+# rounds as bf16); the joints' mean distance within the larger of
+# POSENET2D_BF16_SPREAD x the plain forward's from f32 and phase 9's
+# BF16_KP_JOINT_MEAN_TOL (at the peaked weights a joint sits on a voxel,
+# and the bf16 and f32 joints may be equal).  The step by parts, as 12b's:
+# the whole step kernels vs plain, and the step cut at visible_net's
+# output with the 2D net's cotangent shared, each within
+# POSENET2D_BF16_SPREAD x the largest reading of the plain path against
+# itself on a measurement moved by BF16_MOVE (relative, three seeds): half
+# a bf16 ulp, the move of the first conv's output that its rounding to
+# bf16 resolves (a 1e-7 move, 12b's, is below it: the rounding absorbs
+# it, and its readings are printed beside).
+POSENET2D_BF16_SPREAD = 2.0
+POSENET2D_BF16_AWAY = 0.25
+BF16_MOVE = 2.0 ** -9
+# Those whole-step limits are bf16's distance from itself and tell a wrong
+# backward only by a large error.  The kernels are also held one call at a
+# time inside the step (_held_in_step): every launch of the step's kernels
+# on the very arguments the step gave it, at phase 3's and 7's limits, K1
+# and K5 against their plain versions within CONV_TOL of the plain
+# result's max, K1-bf16 within one bf16 ulp + BF16_ATOL, K8 exactly; both
+# sides round at the same places there, so the limit is the kernel's own.
+# K6 is held against its function in float64 (_wgrad64) within CONV_TOL:
+# dk of dk's max, db of the largest sum of |dz| (a conv that a GroupNorm
+# follows has a bias gradient near 0, so db's own max is no scale).  Its
+# plain version is not the reference there: on this step's data cuDNN's
+# f32 weight gradient lies up to 1.2e-2 of the max from float64 (K6 6.3e-6;
+# the first reading held K6 against it: 122 x CONV_TOL), and both are
+# printed.
+STEP_HELD = {"conv3_planes": "conv", "conv3_planes_bf16": "bf16",
+             "conv3_planes_adjoint": "conv", "conv3_planes_wgrad": "wgrad",
+             "max_pool2_bwd": "exact"}
+
+
+def _wgrad64(x, dz, *, pad_mode="zero", has_bias=True):
+    """K6's function in float64 (dk in K6's (3, 3, 3, cin, cout) layout,
+    db or None)."""
+    mode = "replicate" if pad_mode == "edge" else "constant"
+    xp = torch.nn.functional.pad(x.double(), (1,) * 6, mode=mode)
+    dz = dz.double()
+    dk = torch.nn.grad.conv3d_weight(xp, (dz.shape[1], x.shape[1], 3, 3, 3),
+                                     dz).permute(2, 3, 4, 1, 0)
+    return dk, (dz.sum(dim=(0, 2, 3, 4)) if has_bias else None)
+
+
+def _held_in_step(run, names=STEP_HELD):
+    """Run ``run()`` with each named kernel wrapper replaced, wherever the
+    port's modules hold it, by one that launches the kernel, calls its
+    plain version on the same arguments and measures the distance
+    (``names``: kernel -> limit kind).  Returns run()'s result and
+    {kernel: dict(calls, worst[, at_worst])}, ``worst`` the largest error
+    over the limit (a pass <= 1; exact: the largest |difference|; inf
+    where the kernel's result is not finite), and for K6 at that call
+    K6's and the plain version's [dk, db] readings against float64."""
+    import sys
+
+    from hiddenpose_tpu_torch.ops import kernels as K
+
+    seen = {n: dict(calls=0, worst=0.0) for n in names}
+    patched = []
+
+    def holder(name, orig, plain):
+        def held(*args, **kwargs):
+            got = orig(*args, **kwargs)
+            want = plain(*args, **kwargs)
+            pairs = [(g, w) for g, w in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,))
+                if g is not None and w is not None]
+            kind, worst, detail = names[name], 0.0, None
+            if not all(bool(torch.isfinite(g).all()) for g, _ in pairs):
+                worst = float("inf")
+            elif kind == "wgrad":
+                want64 = [t for t in _wgrad64(*args, **kwargs)
+                          if t is not None]
+                scales = [want64[0].abs().max().item()]
+                if len(pairs) > 1:
+                    scales.append(args[1].abs().double().sum(
+                        dim=(0, 2, 3, 4)).max().item())
+                detail = {side: [
+                    (t.double() - t64).abs().max().item()
+                    / (CONV_TOL * max(sc, 1e-30))
+                    for t, t64, sc in zip(ts, want64, scales)]
+                    for side, ts in (("kernel", [g for g, _ in pairs]),
+                                     ("plain", [w for _, w in pairs]))}
+                worst = max(detail["kernel"])
+            else:
+                for g, w in pairs:
+                    g, w = g.float(), w.float()
+                    scale = max(w.abs().max().item(), 1e-30)
+                    if kind == "exact":
+                        worst = max(worst, (g - w).abs().max().item())
+                    elif kind == "bf16":
+                        excess = K.bf16_ulp_excess(g, w, BF16_ATOL * scale)
+                        worst = max(worst, 0.0 if excess <= 0 else
+                                    1.0 + excess / (BF16_ATOL * scale))
+                    else:
+                        worst = max(worst, (g - w).abs().max().item()
+                                    / (CONV_TOL * scale))
+            seen[name]["calls"] += 1
+            if worst >= seen[name]["worst"]:
+                seen[name]["worst"] = worst
+                if detail is not None:
+                    seen[name]["at_worst"] = detail
+            return got
+
+        held.launches = 0
+        return held
+
+    for name in names:
+        orig, plain = K.KERNELS[name][:2]
+        held = holder(name, orig, plain)
+        for mod in [m for k, m in sys.modules.items()
+                    if k.startswith("hiddenpose_tpu_torch") and m]:
+            for attr, val in list(vars(mod).items()):
+                if val is orig:
+                    setattr(mod, attr, held)
+                    patched.append((mod, attr, orig))
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        for mod, attr, orig in patched:
+            setattr(mod, attr, orig)
+    return out, seen
+
+
+def _bf16_2d_counts(train):
+    """Launches of the bf16 posenet2d NlosPose's serving forward (its
+    measurement in bf16) or train step (the measurement f32, as the batch
+    holds it)."""
+    f32_in = K1_F32_INPUT_TRAIN if train else K1_F32_INPUT_SERVE
+    f32 = sum(K1_SHAPES[i][6] for i in f32_in)
+    runs = STAGE_RUNS if train else 1
+    out = {"conv3_planes": runs * f32,
+           "conv3_planes_bf16": runs * (K1_PER_FORWARD - f32)}
+    if train:
+        out.update(conv3_planes_adjoint=TRAIN_PER_STEP["conv3_planes_adjoint"],
+                   conv3_planes_wgrad=TRAIN_PER_STEP["conv3_planes_wgrad"],
+                   max_pool2_bwd=TRAIN_PER_STEP["max_pool2_bwd"])
+    return out
+
+
+def _hm_joints(a, b, num_joints):
+    """Heatmap RMS difference over b's RMS, and the joints' mean distance
+    (voxels)."""
+    from hiddenpose_tpu_torch.ops.softargmax import softmax_integral
+
+    a, b = a.float(), b.float()
+    rms = float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+    ja = softmax_integral(a, num_joints).reshape(a.shape[0], -1, 3)
+    jb = softmax_integral(b, num_joints).reshape(b.shape[0], -1, 3)
+    return rms, float((ja - jb).norm(dim=-1).mean())
+
+
+def _posenet2d_bf16(dev, smi):
+    """14d: the posenet2d NlosPose in bf16 at t128, batch 2."""
+    import dataclasses
+
+    from hiddenpose_tpu_torch.config import TrainConfig, t128_config
+    from hiddenpose_tpu_torch.data.synthetic import make_batch
+    from hiddenpose_tpu_torch.models.nlospose import NlosPose, build_nlospose
+    from hiddenpose_tpu_torch.ops import kernels as K
+    from hiddenpose_tpu_torch.train.state import TrainState
+    from hiddenpose_tpu_torch.train.step import make_train_step
+    from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+
+    m32 = dataclasses.replace(t128_config().model, backbone="posenet2d")
+    m = dataclasses.replace(m32, compute_dtype="bfloat16")
+    with torch.device("meta"):
+        template = NlosPose(m32)
+    weights = peaked_state_dict(template, seed=1)
+    model, lct = build_nlospose(m, device=dev)
+    model.load_state_dict(weights)
+    _, caps = t128_captures(B)
+    meas = torch.from_numpy(np.stack(caps)).to(dev).to(torch.bfloat16)
+
+    def forward(mdl, x):
+        with torch.inference_mode():
+            return mdl(x, lct)[0]
+
+    forward(model, meas)  # warm-up
+    K.reset_launch_counts()
+    fwd_ms, hm = _event_ms(lambda: forward(model, meas))
+    counts = K.launch_counts()
+    want = {k: _bf16_2d_counts(False).get(k, 0) for k in counts}
+    if counts != want or hm.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(hm.float()).all()):
+        raise RuntimeError(f"14d forward: launch counts {counts} (expected "
+                           f"{want}), heatmaps {hm.dtype}")
+    outs = {}
+    for flag in (True, False):
+        model.set_use_kernels(flag)
+        with deterministic():
+            outs[flag] = forward(model, meas)
+    model.set_use_kernels(True)
+    f32_model, _ = build_nlospose(m32, device=dev)
+    f32_model.load_state_dict(weights)
+    with deterministic():
+        outs["f32"] = forward(f32_model, meas.float())
+    del f32_model
+    nj = m.num_joints
+    kp = _hm_joints(outs[True], outs[False], nj)
+    plain_f32 = _hm_joints(outs[False], outs["f32"], nj)
+    kern_f32 = _hm_joints(outs[True], outs["f32"], nj)
+    fwd = dict(ms=fwd_ms, launches=counts, kernels_vs_plain=kp,
+               plain_vs_f32=plain_f32, kernels_vs_f32=kern_f32)
+    log(f"[14d posenet2d bf16] serving forward b{B} {fwd_ms:.2f} ms, "
+        f"launches {counts}; (heatmap RMS rel, joints mean voxels): kernels"
+        f" vs plain {kp}, plain vs f32 {plain_f32}, kernels vs f32 "
+        f"{kern_f32}; limits {POSENET2D_BF16_SPREAD} x and at least "
+        f"{POSENET2D_BF16_AWAY} x plain vs f32  [{smi}]")
+    if not (kp[0] <= POSENET2D_BF16_SPREAD * plain_f32[0]
+            and kp[1] <= max(POSENET2D_BF16_SPREAD * plain_f32[1],
+                             BF16_KP_JOINT_MEAN_TOL)
+            and kern_f32[0] >= POSENET2D_BF16_AWAY * plain_f32[0]):
+        raise RuntimeError("14d: the bf16 posenet2d forward is off")
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        [0, 1], m.time_size, m.image_size[0], m.grid_dim, m.heatmap_size[0],
+        m.bin_len).items()}
+    step = make_train_step(model)
+    model.load_state_dict(weights)
+    state = TrainState.create(model, TrainConfig())
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    step_ms = [_event_ms(lambda: step(state, batch, lct))[0]
+               for _ in range(2)]
+    train_counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    per = _bf16_2d_counts(True)
+    if train_counts != {k: 2 * per.get(k, 0) for k in train_counts}:
+        raise RuntimeError(f"14d step: launch counts {train_counts}, "
+                           f"expected 2 x {per}")
+    log(f"[14d posenet2d bf16] train steps at 'highest': "
+        f"{[round(x, 2) for x in step_ms]} ms, peak {peak / 2**30:.3f} GiB, "
+        f"launches {train_counts}  [{smi}]")
+    _, held = _held_in_step(
+        lambda: _step_result(model, weights, step, batch, lct, True))
+    log(f"[14d posenet2d bf16] each kernel call of the step against its "
+        f"plain version on the step's own arguments (calls, largest error "
+        f"over its limit; max_pool2_bwd: largest |difference|, exact): "
+        f"{held}")
+    if any(held[k]["calls"] != per.get(k, 0) for k in held) \
+            or any(v["worst"] > (0.0 if STEP_HELD[k] == "exact" else 1.0)
+                   for k, v in held.items()):
+        raise RuntimeError(f"14d step: a kernel call disagrees with its "
+                           f"plain version, or was not seen: {held}")
+    kern = _step_result(model, weights, step, batch, lct, True)
+    plain = _step_result(model, weights, step, batch, lct, False)
+    vs = _train_readings(kern, plain)
+    _log_readings("14d posenet2d bf16", "train step, kernels vs plain", vs)
+    plain_cut = _posenet2d_cut(model, weights, batch, lct, False)
+    _, cot, _ = _posenet2d_head(model, weights, plain_cut["out"], batch)
+    cut = {flag: _posenet2d_cut(model, weights, batch, lct, flag, cot)
+           for flag in (True, False)}
+
+    def cut_readings(a, b):
+        return dict(voxel_loss_rel=abs(a["voxel_loss"] - b["voxel_loss"])
+                    / abs(b["voxel_loss"]),
+                    grad_rel_l2=_grad_rel_l2(a["grads"], b["grads"]))
+
+    cut_vs = cut_readings(cut[True], cut[False])
+    moves = {}
+    for move in (1e-7, BF16_MOVE):
+        spread, cut_spread = [], []
+        for seed in range(3):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            moved = batch["meas"] * (1 + move * torch.randn(
+                batch["meas"].shape, generator=g, device=dev))
+            spread.append(_train_readings(_step_result(
+                model, weights, step, dict(batch, meas=moved), lct, False),
+                plain))
+            cut_spread.append(cut_readings(_posenet2d_cut(
+                model, weights, batch, lct, False, cot, meas=moved),
+                cut[False]))
+        moves[move] = (spread, cut_spread)
+        log(f"[14d posenet2d bf16] the plain step against itself on a "
+            f"{move:.3g} moved measurement: loss rel "
+            f"{[max(r['loss_rel'].values()) for r in spread]}, grads rel L2 "
+            f"{[r['grad_rel_l2'] for r in spread]}, stats "
+            f"{[r['stats_max_rel'] for r in spread]}; the cut: {cut_spread}")
+    spread, cut_spread = moves[BF16_MOVE]
+    lim = dict(
+        loss=POSENET2D_BF16_SPREAD * max(max(r["loss_rel"].values())
+                                         for r in spread),
+        grads=POSENET2D_BF16_SPREAD * max(max(r["grad_rel_l2"].values())
+                                          for r in spread),
+        stats=POSENET2D_BF16_SPREAD * max(r["stats_max_rel"]
+                                          for r in spread),
+        cut_voxel=POSENET2D_BF16_SPREAD * max(r["voxel_loss_rel"]
+                                              for r in cut_spread),
+        cut_grads=POSENET2D_BF16_SPREAD * max(max(r["grad_rel_l2"].values())
+                                              for r in cut_spread))
+    log(f"[14d posenet2d bf16] kernels vs plain cut {cut_vs}; limits {lim}")
+    ok = (max(vs["loss_rel"].values()) <= lim["loss"]
+          and max(vs["grad_rel_l2"].values()) <= lim["grads"]
+          and vs["stats_max_rel"] <= lim["stats"]
+          and cut_vs["voxel_loss_rel"] <= lim["cut_voxel"]
+          and max(cut_vs["grad_rel_l2"].values()) <= lim["cut_grads"])
+    if not ok:
+        raise RuntimeError("14d: the bf16 posenet2d step's kernels and "
+                           "plain versions disagree")
+    return dict(forward=fwd, step_ms=step_ms, peak_memory_bytes=peak,
+                kernel_calls_in_step=held, kernels_vs_plain=vs, cut_kernels_vs_plain=cut_vs,
+                plain_vs_moved_plain={str(k): v for k, v in moves.items()},
+                limits=lim), \
+        {k: counts.get(k, 0) + train_counts.get(k, 0)
+         for k in set(counts) | set(train_counts)}
+
+
+def _entry_points(dev, smi):
+    """14e: the port's ``entry()`` forward at HP_ENTRY_SIZE=64 on the card,
+    kernels against plain, and ``dryrun_multichip(1)`` over NCCL."""
+    from hiddenpose_tpu_torch.graft_entry import dryrun_multichip, entry
+    from hiddenpose_tpu_torch.ops import kernels as K
+
+    saved = os.environ.get("HP_ENTRY_SIZE")
+    os.environ["HP_ENTRY_SIZE"] = "64"
+    try:
+        fn, args = entry()
+    finally:
+        if saved is None:
+            del os.environ["HP_ENTRY_SIZE"]
+        else:
+            os.environ["HP_ENTRY_SIZE"] = saved
+    model = args[0]
+    fn(*args)  # warm-up
+    K.reset_launch_counts()
+    ms, (joints, hm) = _event_ms(lambda: fn(*args))
+    counts = K.launch_counts()
+    outs = {}
+    for flag in (True, False):
+        model.set_use_kernels(flag)
+        with deterministic():
+            outs[flag] = fn(*args)[1]
+    model.set_use_kernels(True)
+    rel = float((outs[True] - outs[False]).abs().max()
+                / outs[False].abs().max())
+    log(f"[14e entry] entry() forward at 64^3: joints {tuple(joints.shape)}"
+        f", heatmaps {tuple(hm.shape)} in {ms:.2f} ms, launches {counts}; "
+        f"kernels vs plain heatmaps max rel {rel:.3e} ({E2E_HM_TOL})")
+    if not (bool(torch.isfinite(joints).all()) and rel <= E2E_HM_TOL
+            and min(counts.values()) >= 0 and sum(counts.values()) > 0):
+        raise RuntimeError("14e: entry()'s forward is off")
+    del model, args, fn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1)
+    dry_s = time.perf_counter() - t0
+    log(f"[14e entry] dryrun_multichip(1) over NCCL: {dry} in {dry_s:.1f} s"
+        f" (a process of its own)")
+    if not (np.isfinite(dry["loss"]) and dry["device"].startswith("cuda")):
+        raise RuntimeError(f"14e: dryrun_multichip(1) gave {dry}")
+    return dict(entry_ms=ms, entry_launches=counts, entry_hm_rel=rel,
+                dryrun=dry, dryrun_seconds=dry_s), counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3812,8 +4489,9 @@ def main() -> int:
 
 
 def run() -> int:
-    """Phases 1-13 (1, 2 and 11 with ``--loop``, 1, 2 and 12 with
-    ``--alt``, 1, 2 and 13 with ``--models``) and the result lines."""
+    """Phases 1-14 (1, 2 and 11 with ``--loop``, 1, 2 and 12 with
+    ``--alt``, 1, 2 and 13 with ``--models``, 1, 2 and 14 with
+    ``--parallel``) and the result lines."""
     # cuBLAS is deterministic only with a fixed workspace; set before the
     # first CUDA call (deterministic() checks for it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3850,6 +4528,15 @@ def run() -> int:
             device=smi, seconds=seconds, models=models,
             launches=model_counts), indent=1, default=str))
         log(f"[13 models] alone: done  [{smi}]")
+        return 0
+    if sys.argv[1:] == ["--parallel"]:  # phase 14 alone
+        par, par_counts = timed("14 parallel", phase_parallel, dev, smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_parallel.json").write_text(json.dumps(dict(
+            device=smi, seconds=seconds, parallel=par,
+            launches=par_counts), indent=1, default=str))
+        log(f"[14 parallel] alone: done  [{smi}]")
         return 0
     if sys.argv[1:] == ["--alt"]:  # phase 12 alone
         alt, alt_counts = timed("12 alt objectives", phase_alt_objectives,
@@ -3890,6 +4577,8 @@ def run() -> int:
                             smi)
     torch.cuda.empty_cache()
     models, model_counts = timed("13 models", phase_models, dev, smi)
+    torch.cuda.empty_cache()
+    par, par_counts = timed("14 parallel", phase_parallel, dev, smi)
 
     from hiddenpose_tpu_torch.ops.kernels import KERNELS
 
@@ -3918,14 +4607,17 @@ def run() -> int:
             # 10's 3 + 1 + 3 train steps at 'default', 'high' and bf16,
             # phase 11's train loop (4 steps at 'default'), phase 12's
             # 3 + 1 SimDR steps, posenet2d forward and 2 steps, and
-            # heatmap3d step, and phase 13's 3 + 1 bf16 SimDR steps and
+            # heatmap3d step, phase 13's 3 + 1 bf16 SimDR steps and
             # the basic PoseNet3D's f32 and bf16 forwards, train forward +
-            # backward and library-stem forward
+            # backward and library-stem forward, and phase 14's timed
+            # data-parallel steps (4 + 4), remat-knob steps (5 x 3), bf16
+            # posenet2d forward and 2 steps, and entry() forward
             launches=(serve_counts[name] + train_counts[name]
                       + sformer_counts[name] + probe_counts[name]
                       + bf16_counts[name] + prec_counts[name]
                       + loop_counts[name] + alt_counts.get(name, 0)
-                      + model_counts.get(name, 0)),
+                      + model_counts.get(name, 0)
+                      + par_counts.get(name, 0)),
             max_abs_err=max(x["max_abs_err"] for x in on_path),
             max_abs_err_all_shapes=max(x["max_abs_err"] for x in r),
             ms=total("ms"), plain_ms=total("plain_ms"),
@@ -3948,7 +4640,8 @@ def run() -> int:
         serve=serve, end_to_end=e2e, train=train, sformer=sformer,
         probes=probes, serve_bf16=serve_bf16,
         train_precision=train_precision, train_loop=train_loop,
-        alt_objectives=alt, models=models), indent=1, default=str))
+        alt_objectives=alt, models=models, parallel=par), indent=1,
+        default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,11 @@ and the transformer variant, video -> NlosPoseSformer -> SimDR logits ->
 joints (``models/sformer.py``); the other training objectives
 (``train/alt_steps.py``), NlosPose's ``posenet2d`` backbone and TokenPose,
 PoseNet3D's other configurations, DeepVoxels (``models/deepvoxels.py``),
-the wave, resample and channelled-LCT ops, and the figures (``viz/``).
+the wave, resample and channelled-LCT ops, and the figures (``viz/``);
+multi-GPU training (``parallel/``: a ('data', 'model') mesh of process
+groups, data and tensor parallelism, the spatially sharded LCT; the
+loop's mesh and ``cli.train --multihost``), the rematerialisation knobs
+(``utils/remat.py``) and the graft entry points (``graft_entry.py``).
 Imports torch, never jax;
 the hot kernels are hand-written CUDA under ``csrc/``.
 

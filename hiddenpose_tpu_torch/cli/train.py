@@ -4,11 +4,22 @@
 
 The flags of the JAX package's ``train.py`` (the reference's
 --model/--test/--log/--data/--device/--PHASE, and --synthetic, --epochs,
---batch-size, --steps-per-epoch, --log-every, --size, --precision), the
-same t128 configuration and recipe, on one device: ``--device`` is a GPU
-index (default 0) or ``cpu``; without a GPU the command fails unless
-given ``--device cpu``.  Multi-host training (the JAX ``--multihost``) is
-not ported.
+--batch-size, --steps-per-epoch, --log-every, --size, --precision,
+--multihost), the same t128 configuration and recipe: ``--device`` is a
+GPU index (default 0) or ``cpu``; without a GPU the command fails unless
+given ``--device cpu``.
+
+``--multihost`` joins a multi-process job (``parallel/distributed.py::
+initialize``: ``HP_COORDINATOR`` / ``HP_NUM_PROCESSES`` / ``HP_PROCESS_ID``,
+or torchrun's variables) and trains data parallel, each process on its
+shard of the data (``process_info``) and, on GPUs, on its own card
+(``cuda:{LOCAL_RANK}``; ``--device`` then only says GPU or CPU)::
+
+    torchrun --nproc_per_node=8 -m hiddenpose_tpu_torch.cli.train \
+        --multihost --synthetic
+
+``--device cpu`` runs the job on gloo.  ``--batch-size`` is each
+process's batch.
 """
 
 from __future__ import annotations
@@ -44,6 +55,10 @@ def parse_args(argv=None):
                    choices=("default", "high", "highest"),
                    help="matmul precision of the train step "
                         "(cfg.train.matmul_precision, 'default')")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-process job (HP_COORDINATOR/"
+                        "HP_NUM_PROCESSES/HP_PROCESS_ID or torchrun's "
+                        "variables) and shard the data stream per process")
     return p.parse_args(argv)
 
 
@@ -57,9 +72,17 @@ def main(argv=None):
         NlosPoseSource,
         SyntheticSource,
     )
+    from hiddenpose_tpu_torch.parallel import distributed
     from hiddenpose_tpu_torch.train.loop import train
 
     device = resolve_device(args.device)
+    shard = None
+    if args.multihost:
+        distributed.initialize(device=device)
+        device = distributed.local_device(device)
+        shard = distributed.process_info()
+        print(f"multihost: process {shard.shard_index}/{shard.shard_count} "
+              f"on {device}")
     cfg = t128_config() if args.size == 128 else t128_config().tiny(args.size)
     updates = {}
     if args.log:
@@ -94,7 +117,9 @@ def main(argv=None):
     result = train(cfg, source=source,
                    workdir=args.model or cfg.final_output_dir,
                    max_steps_per_epoch=args.steps_per_epoch,
-                   log_every=log_every, device=device)
+                   log_every=log_every, device=device,
+                   shard_index=shard.shard_index if shard else 0,
+                   shard_count=shard.shard_count if shard else 1)
     print(f"finished training: {result.epochs_run} epochs, final loss "
           f"{result.last_metrics.get('loss', float('nan')):.5f}")
     return result

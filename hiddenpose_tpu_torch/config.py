@@ -1,12 +1,13 @@
-"""The model and training configuration of the ported paths.
+"""The model and training configuration of the port.
 
-The fields of ``hiddenpose_tpu/config.py::ModelConfig`` that the ported
-paths read (NlosPose and the transformer family), ``DatasetConfig`` and
+``hiddenpose_tpu/config.py``'s ``ModelConfig`` (every field the models
+read, the three rematerialisation knobs included), ``DatasetConfig`` and
 ``TrainConfig`` field for field, and the run fields of ``Config`` (log and
 checkpoint directories, phase, eval batch sizes, loader workers), with
 the same defaults and the same presets, so the port runs where the JAX
-package is not installed.  Any object with these attributes
-(the JAX package's ``Config`` included) is accepted wherever a config is.
+package is not installed.  Only ``param_dtype`` is left out: the port's
+parameters are float32.  Any object with these attributes (the JAX
+package's ``Config`` included) is accepted wherever a config is.
 """
 
 from __future__ import annotations
@@ -53,6 +54,15 @@ class ModelConfig:
     # substitute a pretrained UNet3d (train/pretrain.py) and freeze it
     pretrain_autoencoder: bool = False
     pretrain_autoencoder_path: str = "./lib/nlos_unet.pth"
+    # Rematerialisation in training (``utils/remat.py``): the backward
+    # recomputes a stage's forward instead of keeping its activations.
+    # ``stage_remat``: FeatureExtraction, the LCT and the UNet
+    # (``models/nlospose.py``); ``posenet_remat``: each residual block of
+    # PoseNet3D; ``posenet_remat_stem``: its stem (conv, BN, ReLU, pool).
+    # The JAX package's defaults; the results are the same either way.
+    stage_remat: bool = True
+    posenet_remat: bool = False
+    posenet_remat_stem: bool = False
 
 
 @dataclass(frozen=True)

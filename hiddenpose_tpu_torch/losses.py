@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from hiddenpose_tpu_torch.ops.softargmax import softmax_integral
+from hiddenpose_tpu_torch.parallel.mesh import active_mesh, all_reduce_sum
 
 
 def weighted_mse_loss(pred, target, weights, size_average: bool = True):
@@ -36,10 +37,17 @@ def l2_joint_location_loss(heatmaps, gt_joints, gt_joints_vis,
 
 
 def dice_loss(logits, targets, eps: float = 1e-9):
-    """1 - one Dice score over the whole batch (sums before the ratio)."""
+    """1 - one Dice score over the whole batch (sums before the ratio).
+    Inside a data-parallel step (``parallel/mesh.py::data_parallel``) the
+    sums are taken over every rank's share of the batch, as the JAX step
+    takes them over its sharded global batch."""
     probs = torch.sigmoid(logits)
-    intersection = 2.0 * (probs * targets).sum()
-    union = probs.sum() + targets.sum()
+    sums = torch.stack([(probs * targets).sum(), probs.sum(), targets.sum()])
+    mesh = active_mesh()
+    if mesh is not None:
+        sums = all_reduce_sum(sums, mesh.group("data"))
+    intersection = 2.0 * sums[0]
+    union = sums[1] + sums[2]
     return 1.0 - (intersection + eps) / union
 
 

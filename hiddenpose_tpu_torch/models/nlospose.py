@@ -28,9 +28,16 @@ parameters stay float32 and are cast at use (their gradients come back
 float32, Adam updates them in f32); FeatureExtraction and the UNet run on bf16
 volumes (the FeatureExtraction's first conv on the input in its own type,
 as the JAX kernel takes it); the LCT and the normalisation run in float32 (the LCT widens its
-bf16 input); ``feature + refine`` promotes to float32; the backbone's
-convs round to bf16, its BatchNorms return float32; the heatmaps come out
-bf16 and the soft-argmax widens them.
+bf16 input); ``feature + refine`` promotes to float32 (``visible_net``
+runs on it in f32 for the ``posenet2d`` backbone); either backbone's convs
+round to bf16, its BatchNorms return float32; the heatmaps come out bf16
+and the soft-argmax widens them.
+
+In training the three rematerialisation knobs of ``cfg`` apply
+(``utils/remat.py``): ``stage_remat`` (the default) recomputes
+FeatureExtraction, the LCT and the UNet in the backward, as the JAX
+package's ``nn.remat`` / ``jax.checkpoint`` do; ``posenet_remat`` and
+``posenet_remat_stem`` PoseNet3D's blocks and stem.
 """
 
 from __future__ import annotations
@@ -50,19 +57,28 @@ from hiddenpose_tpu_torch.models.blocks import (
 from hiddenpose_tpu_torch.models.posenet2d import ResPoseNet2D, visible_net
 from hiddenpose_tpu_torch.models.posenet3d import PoseNet3D
 from hiddenpose_tpu_torch.models.unet3d import UNet3d
-from hiddenpose_tpu_torch.ops.lct import LCTParams, lct_apply, make_lct_params
+from hiddenpose_tpu_torch.ops.lct import (
+    LCTParams,
+    lct_apply,
+    lct_apply_sharded,
+    make_lct_params,
+)
 from hiddenpose_tpu_torch.ops.normalize import normalize_feature
+from hiddenpose_tpu_torch.utils.remat import remat
 
 
 class NlosPose(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    """``spatial_mesh``: a ``parallel/mesh.py::Mesh``; when set, the LCT's
+    padded FFT cube is sharded on H over its 'model' axis
+    (``ops/lct.py::lct_apply_sharded``), the JAX package's decomposition
+    for grids whose padded spectrum exceeds one device's memory."""
+
+    def __init__(self, cfg: ModelConfig, spatial_mesh=None):
         super().__init__()
         if cfg.backbone not in ("posenet3d_50", "posenet2d"):
             raise NotImplementedError(f"backbone {cfg.backbone!r}")
-        if cfg.backbone == "posenet2d" and cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "the posenet2d backbone is ported in float32 only")
         self.cfg = cfg
+        self.spatial_mesh = spatial_mesh
         self.compute_dtype = dt = as_dtype(cfg.compute_dtype)
         self.feature_extraction = FeatureExtraction(
             basedim=cfg.basedim, in_channels=cfg.in_channels, dtype=dt)
@@ -72,9 +88,12 @@ class NlosPose(nn.Module):
             # visible_net's values and depths: 2 x 4 channels a channel
             self.pose_net = ResPoseNet2D(in_channels=8 * cfg.in_channels,
                                          num_joints=cfg.num_joints,
-                                         depth_dim=cfg.heatmap_size[0])
+                                         depth_dim=cfg.heatmap_size[0],
+                                         dtype=dt)
         else:
-            self.pose_net = PoseNet3D(num_joints=cfg.num_joints, dtype=dt)
+            self.pose_net = PoseNet3D(
+                num_joints=cfg.num_joints, dtype=dt,
+                remat=cfg.posenet_remat, remat_stem=cfg.posenet_remat_stem)
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route every kernelled op to its CUDA kernel (True, the default)
@@ -84,15 +103,22 @@ class NlosPose(nn.Module):
             if hasattr(m, "use_kernels"):
                 m.use_kernels = bool(flag)
 
+    def lct(self, flat: torch.Tensor, lct: LCTParams) -> torch.Tensor:
+        if self.spatial_mesh is not None:
+            return lct_apply_sharded(flat, lct, self.spatial_mesh)
+        return lct_apply(flat, lct, batch_chunk=self.cfg.lct_batch_chunk)
+
     def forward(self, meas: torch.Tensor,
                 lct: LCTParams) -> Tuple[torch.Tensor, torch.Tensor]:
+        # cfg.stage_remat: FeatureExtraction, the LCT and the UNet recompute
+        # their activations in the backward (utils/remat.py)
+        stage = remat if self.cfg.stage_remat else (lambda f, *a: f(*a))
         b = meas.shape[0]
-        x = self.feature_extraction(meas)            # (B, ch, T, H, W)
+        x = stage(self.feature_extraction, meas)     # (B, ch, T, H, W)
         ch = x.shape[1]
-        vol = lct_apply(x.reshape(b * ch, *x.shape[2:]), lct,
-                        batch_chunk=self.cfg.lct_batch_chunk)
+        vol = stage(self.lct, x.reshape(b * ch, *x.shape[2:]), lct)
         feature = normalize_feature(vol.reshape(b, ch, *vol.shape[1:]))
-        refine = self.autoencoder(feature)
+        refine = stage(self.autoencoder, feature)
         if self.cfg.backbone == "posenet2d":
             hm2d = self.pose_net(visible_net(feature + refine))
             bh, _, hh, ww = hm2d.shape
@@ -139,11 +165,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.weights.copy_(corner_mask(m.weights.shape[1]))
 
 
-def build_nlospose(cfg: ModelConfig, device="cuda",
-                   seed: int = 0) -> Tuple[NlosPose, LCTParams]:
+def build_nlospose(cfg: ModelConfig, device="cuda", seed: int = 0,
+                   spatial_mesh=None) -> Tuple[NlosPose, LCTParams]:
     """The eval-mode model on ``device`` with random weights from ``seed``,
     plus its LCT constants.  ``device`` defaults to the GPU and raises
     without one; pass ``device="cpu"`` to run on the CPU.
+    ``spatial_mesh``: see :class:`NlosPose`.
 
     For a CUDA device this turns TF32 off for cuDNN convolutions and
     matmuls: the float32 path is full float32, as the JAX package's
@@ -155,7 +182,7 @@ def build_nlospose(cfg: ModelConfig, device="cuda",
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = NlosPose(cfg)
+    model = NlosPose(cfg, spatial_mesh=spatial_mesh)
     init_weights(model, torch.Generator().manual_seed(seed))
     if cfg.backbone == "posenet3d_50":
         model.pose_net.to(memory_format=torch.channels_last_3d)

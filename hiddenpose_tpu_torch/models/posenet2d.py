@@ -7,8 +7,12 @@ conv to ``num_joints * depth_dim`` depth-sliced heatmap channels
 (:class:`ResPoseNet2D`); :func:`visible_net` flattens a 3D feature volume
 to 2D channels for it.
 
-NCHW throughout.  Where flax and torch differ, the JAX package is
-followed:
+NCHW throughout.  ``dtype=torch.bfloat16`` is the JAX module's
+``dtype=bf16``: every conv and deconv rounds its input and weight to
+bf16 and returns bf16, every BatchNorm returns float32 (flax's BatchNorm
+has no dtype), so the ReLUs, the max-pool and the residual adds run in
+f32 and the heatmaps come out bf16.  Where flax and torch differ, the
+JAX package is followed:
 
 * flax's ``padding="SAME"`` pads a stride-2 conv asymmetrically on an even
   extent (the 7x7 stem (2, 3), a 3x3 (0, 1)): :class:`SameConv2d` pads
@@ -38,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hiddenpose_tpu_torch.models.posenet3d import flax_batch_norm
 from hiddenpose_tpu_torch.ops.normalize import normalize
 
 
@@ -50,10 +55,14 @@ def same_pads(n: int, k: int, s: int):
 
 
 class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with flax's ``"SAME"`` padding (no bias)."""
+    """``nn.Conv2d`` with flax's ``"SAME"`` padding (no bias); with a bf16
+    ``dtype`` the input and weight are rounded to it and the result is
+    bf16 (flax's ``nn.Conv(dtype=...)``)."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 dtype=torch.float32):
         super().__init__(cin, cout, k, stride=stride, bias=False)
+        self.compute_dtype = dtype
 
     def forward(self, x):
         k, s = self.kernel_size[0], self.stride[0]
@@ -61,41 +70,41 @@ class SameConv2d(nn.Conv2d):
         pw = same_pads(x.shape[3], k, s)
         if any(ph + pw):
             x = F.pad(x, (*pw, *ph))
-        return F.conv2d(x, self.weight, None, s)
+        w, dt = self.weight, self.compute_dtype
+        if dt != torch.float32:
+            x, w = x.to(dt), w.to(dt)
+        return F.conv2d(x, w, None, s)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose training forward updates the running
-    statistics as flax's ``nn.BatchNorm(momentum=0.9)`` does: ``0.9 * old
-    + 0.1 * batch``, the variance biased (torch's own update uses the
-    unbiased one).  Eval mode is torch's."""
+    """``nn.BatchNorm2d`` whose training forward is flax's
+    ``nn.BatchNorm(momentum=0.9)`` (``posenet3d.py::flax_batch_norm``:
+    the running statistics ``0.9 * old + 0.1 * batch``, the variance
+    biased; torch's own update uses the unbiased one).  A bf16 input is
+    normalised in f32 and the result is float32, as flax's BatchNorm
+    without a dtype returns for a bf16 input and float32 parameters.  Eval
+    mode is torch's."""
 
     def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked += 1
-        return y
+        return flax_batch_norm(self, x)
 
 
 class BasicBlock2D(nn.Module):
     expansion = 1
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 use_projection: bool = False):
+                 use_projection: bool = False, dtype=torch.float32):
         super().__init__()
-        self.conv1 = SameConv2d(in_planes, planes, 3, stride)
+        self.conv1 = SameConv2d(in_planes, planes, 3, stride, dtype)
         self.bn1 = FlaxBatchNorm2d(planes)
-        self.conv2 = SameConv2d(planes, planes, 3)
+        self.conv2 = SameConv2d(planes, planes, 3, dtype=dtype)
         self.bn2 = FlaxBatchNorm2d(planes)
         if use_projection:
-            self.conv_proj = SameConv2d(in_planes, planes, 1, stride)
+            self.conv_proj = SameConv2d(in_planes, planes, 1, stride, dtype)
             self.bn_proj = FlaxBatchNorm2d(planes)
         self.use_projection = use_projection
 
@@ -111,17 +120,17 @@ class Bottleneck2D(nn.Module):
     expansion = 4
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 use_projection: bool = False):
+                 use_projection: bool = False, dtype=torch.float32):
         super().__init__()
         out = planes * self.expansion
-        self.conv1 = SameConv2d(in_planes, planes, 1)
+        self.conv1 = SameConv2d(in_planes, planes, 1, dtype=dtype)
         self.bn1 = FlaxBatchNorm2d(planes)
-        self.conv2 = SameConv2d(planes, planes, 3, stride)
+        self.conv2 = SameConv2d(planes, planes, 3, stride, dtype)
         self.bn2 = FlaxBatchNorm2d(planes)
-        self.conv3 = SameConv2d(planes, out, 1)
+        self.conv3 = SameConv2d(planes, out, 1, dtype=dtype)
         self.bn3 = FlaxBatchNorm2d(out)
         if use_projection:
-            self.conv_proj = SameConv2d(in_planes, out, 1, stride)
+            self.conv_proj = SameConv2d(in_planes, out, 1, stride, dtype)
             self.bn_proj = FlaxBatchNorm2d(out)
         self.use_projection = use_projection
 
@@ -138,10 +147,10 @@ class ResNetBackbone2D(nn.Module):
     """7x7 s2 stem, BN, ReLU, 3x3 s2 max-pool, four stages of blocks."""
 
     def __init__(self, in_channels: int, layers: Sequence[int] = (3, 4, 6, 3),
-                 block: str = "bottleneck"):
+                 block: str = "bottleneck", dtype=torch.float32):
         super().__init__()
         block_cls = Bottleneck2D if block == "bottleneck" else BasicBlock2D
-        self.conv1 = SameConv2d(in_channels, 64, 7, 2)
+        self.conv1 = SameConv2d(in_channels, 64, 7, 2, dtype)
         self.bn1 = FlaxBatchNorm2d(64)
         in_planes = 64
         self.block_names = []
@@ -153,7 +162,8 @@ class ResNetBackbone2D(nn.Module):
                 out = planes * block_cls.expansion
                 proj = b == 0 and (s != 1 or in_planes != out)
                 name = f"layer{stage + 1}_{b}"
-                setattr(self, name, block_cls(in_planes, planes, s, proj))
+                setattr(self, name, block_cls(in_planes, planes, s, proj,
+                                              dtype))
                 self.block_names.append(name)
                 in_planes = out
         self.out_channels = in_planes
@@ -169,13 +179,16 @@ class ResNetBackbone2D(nn.Module):
 
 class DeconvHead2D(nn.Module):
     """3 x (ConvTranspose k4 s2 + BN + ReLU), then a 1x1 conv (with bias)
-    to ``num_joints * depth_dim`` channels."""
+    to ``num_joints * depth_dim`` channels.  In bf16 each conv rounds its
+    input and weight and returns bf16, the final conv's bias added in
+    bf16, as flax's ``dtype`` does."""
 
     def __init__(self, in_channels: int, num_layers: int = 3,
                  num_filters: int = 256, num_joints: int = 24,
-                 depth_dim: int = 64):
+                 depth_dim: int = 64, dtype=torch.float32):
         super().__init__()
         self.num_layers = num_layers
+        self.compute_dtype = dtype
         for i in range(num_layers):
             setattr(self, f"deconv{i + 1}", nn.ConvTranspose2d(
                 in_channels if i == 0 else num_filters, num_filters, 4,
@@ -184,10 +197,16 @@ class DeconvHead2D(nn.Module):
         self.final = nn.Conv2d(num_filters, num_joints * depth_dim, 1)
 
     def forward(self, x):
+        dt = self.compute_dtype
         for i in range(1, self.num_layers + 1):
-            x = F.relu(getattr(self, f"bn{i}")(
-                getattr(self, f"deconv{i}")(x)))
-        return self.final(x)
+            m = getattr(self, f"deconv{i}")
+            y = (m(x) if dt == torch.float32 else F.conv_transpose2d(
+                x.to(dt), m.weight.to(dt), None, m.stride, m.padding))
+            x = F.relu(getattr(self, f"bn{i}")(y))
+        if dt == torch.float32:
+            return self.final(x)
+        y = F.conv2d(x.to(dt), self.final.weight.to(dt))
+        return y + self.final.bias.to(dt)[:, None, None]
 
 
 class ResPoseNet2D(nn.Module):
@@ -197,11 +216,12 @@ class ResPoseNet2D(nn.Module):
 
     def __init__(self, in_channels: int, num_joints: int = 24,
                  depth_dim: int = 64, layers: Sequence[int] = (3, 4, 6, 3),
-                 block: str = "bottleneck"):
+                 block: str = "bottleneck", dtype=torch.float32):
         super().__init__()
-        self.backbone = ResNetBackbone2D(in_channels, layers, block)
+        self.backbone = ResNetBackbone2D(in_channels, layers, block, dtype)
         self.head = DeconvHead2D(self.backbone.out_channels,
-                                 num_joints=num_joints, depth_dim=depth_dim)
+                                 num_joints=num_joints, depth_dim=depth_dim,
+                                 dtype=dtype)
 
     def forward(self, x):
         return self.head(self.backbone(x))

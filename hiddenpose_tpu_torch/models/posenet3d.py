@@ -43,6 +43,14 @@ its input rounds back to bf16), so the residual adds and ReLUs run in f32
 and the next conv rounds again; the head's final conv adds its bias in
 bf16.
 
+In training, ``remat`` recomputes each residual block in the backward
+and ``remat_stem`` the stem above (``utils/remat.py``; the JAX
+``PoseNet3D``'s knobs of those names, which NlosPose sets from
+``cfg.posenet_remat`` and ``cfg.posenet_remat_stem``).  The JAX class
+defaults ``remat`` to True, but the JAX NlosPose always passes the
+config's False; here both default to False.  The results are the same
+either way.
+
 The other configurations of the JAX ``PoseNet3D``: ``block="basic"``
 (:class:`BasicBlock`, the ResNet-18/34 block: two 3^3 convs, bn2 without
 a ReLU, the ReLU after the residual add), ``widen_factor`` (each width
@@ -94,6 +102,8 @@ from hiddenpose_tpu_torch.ops.kernels import (
 )
 from hiddenpose_tpu_torch.ops.kernels.conv3mxu import route, router_admits
 from hiddenpose_tpu_torch.ops.stem_vjp import stem_conv_diff
+from hiddenpose_tpu_torch.parallel.mesh import active_mesh, sync_batch_norm
+from hiddenpose_tpu_torch.utils.remat import recomputing, remat
 
 
 def bn_affine(bn: nn.BatchNorm3d):
@@ -131,26 +141,43 @@ def bn(m: nn.BatchNorm3d, x):
     return m(x.float())
 
 
+def flax_batch_norm(m: nn.modules.batchnorm._BatchNorm, x):
+    """The training forward of flax's ``nn.BatchNorm(momentum=0.9)`` with
+    ``m``'s parameters and buffers: ``x`` normalised with its batch mean
+    and biased variance, and both running statistics updated as ``0.9 *
+    old + 0.1 * batch`` (torch's own update takes the unbiased variance).
+
+    Inside a data-parallel step (``parallel/mesh.py::data_parallel``) the
+    moments are the whole batch's, over every rank's share
+    (``sync_batch_norm``), as the JAX step takes them.  In a recompute
+    (``utils/remat.py``) the buffers are left alone: they are updated once
+    a step, as flax's functional remat updates them."""
+    mesh = active_mesh()
+    if mesh is None:
+        y = F.batch_norm(x, None, None, m.weight, m.bias, True, 0.0, m.eps)
+    else:
+        y, mean, var = sync_batch_norm(x, m.weight, m.bias, m.eps, mesh)
+    if not recomputing():
+        with torch.no_grad():
+            if mesh is None:
+                var, mean = torch.var_mean(x, dim=(0, *range(2, x.dim())),
+                                           unbiased=False)
+            mom = m.momentum
+            m.running_mean.mul_(1.0 - mom).add_(mean, alpha=mom)
+            m.running_var.mul_(1.0 - mom).add_(var, alpha=mom)
+            m.num_batches_tracked += 1
+    return y
+
+
 class FlaxBatchNorm3d(nn.BatchNorm3d):
     """``nn.BatchNorm3d`` (same parameters, buffers and state_dict keys)
-    whose training forward follows flax's ``nn.BatchNorm(momentum=0.9)``:
-    it normalises with the batch mean and biased variance, as torch does,
-    but updates ``running_var`` with the BIASED variance too (torch's own
-    update uses the unbiased one): ``0.9 * old + 0.1 * batch`` for both
-    running statistics.  Eval mode is torch's."""
+    whose training forward is flax's (:func:`flax_batch_norm`).  Eval
+    mode is torch's."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked += 1
-        return y
+        return flax_batch_norm(self, x)
 
 
 def _ndhwc(x):
@@ -299,8 +326,10 @@ class PoseNet3D(nn.Module):
                  num_joints: int = 24, dtype=torch.float32,
                  block: str = "bottleneck", widen_factor: float = 1.0,
                  conv1_t_size: int = 7, conv1_t_stride: int = 1,
-                 no_max_pool: bool = False, in_channels: int = 1):
+                 no_max_pool: bool = False, in_channels: int = 1,
+                 remat: bool = False, remat_stem: bool = False):
         super().__init__()
+        self.remat, self.remat_stem = remat, remat_stem
         if block not in ("bottleneck", "basic"):
             raise ValueError(f"block must be 'bottleneck' or 'basic', "
                              f"got {block!r}")
@@ -337,39 +366,45 @@ class PoseNet3D(nn.Module):
         takes its fused stem (:meth:`s2d_stem`): K2 and K3 in the serving
         forward; else the library conv (its backward rewritten as matrix
         products, ``stem_conv_diff``), bn1, ReLU and the differentiable
-        pool (K3, K7).  Otherwise :meth:`library_stem`."""
+        pool (K3, K7): :meth:`train_stem`, recomputed in the backward with
+        ``remat_stem``.  Otherwise :meth:`library_stem`."""
         if not self.s2d_stem(x):
             return self.library_stem(x)
+        if not fused(self):
+            return (remat(self.train_stem, x) if self.remat_stem
+                    else self.train_stem(x))
         b, c, d, h, w = x.shape
         dt = self.compute_dtype
-        k2 = c == 1 and self.conv1.out_channels == 64
-        if fused(self):
-            pool = (maxpool3d_k3s2p1 if self.use_kernels
-                    else maxpool3d_k3s2p1_ref)
+        pool = maxpool3d_k3s2p1 if self.use_kernels else maxpool3d_k3s2p1_ref
+        if dt == torch.bfloat16 and self.use_kernels:
+            pool = maxpool3d_k3s2p1_bf16
+        if c == 1 and self.conv1.out_channels == 64:  # K2
+            scale, shift = bn_affine(self.bn1)
+            stem = stem_conv_raw if self.use_kernels else stem_conv_raw_ref
             if dt == torch.bfloat16 and self.use_kernels:
-                pool = maxpool3d_k3s2p1_bf16
-            if k2:
-                scale, shift = bn_affine(self.bn1)
-                stem = (stem_conv_raw if self.use_kernels
-                        else stem_conv_raw_ref)
-                if dt == torch.bfloat16 and self.use_kernels:
-                    stem = stem_conv_raw_bf16
-                y = stem(x.to(dt).reshape(b, d, h, w, 1).contiguous(),
-                         dhwio(self.conv1.weight).to(dt), scale, shift,
-                         relu=True)
-            else:
-                y = F.conv3d(x.to(dt), self.conv1.weight.to(dt), padding=3)
-                y = _ndhwc(F.relu(self.bn1(y.float())).to(dt))
+                stem = stem_conv_raw_bf16
+            y = stem(x.to(dt).reshape(b, d, h, w, 1).contiguous(),
+                     dhwio(self.conv1.weight).to(dt), scale, shift,
+                     relu=True)
         else:
-            xs, w = x.to(dt), self.conv1.weight.to(dt)
-            conv = (stem_conv_diff(xs, w) if self.use_kernels and c == 1
-                    else F.conv3d(xs, w, padding=3))
-            # bn1 on the f32 widening, the ReLU's output in the model's type
-            # (the reference's StemS2D: statistics of an f32 conv output)
-            y = _ndhwc(F.relu(self.bn1(conv.float())).to(dt))
-            pool = (maxpool3d_k3s2p1_diff if self.use_kernels
-                    else maxpool3d_k3s2p1_ref)
+            y = F.conv3d(x.to(dt), self.conv1.weight.to(dt), padding=3)
+            y = _ndhwc(F.relu(self.bn1(y.float())).to(dt))
         return pool(y).permute(0, 4, 1, 2, 3)  # channels_last NCDHW view
+
+    def train_stem(self, x):
+        """The stem where a gradient is wanted: the library conv (its
+        backward the matrix products of ``stem_conv_diff``), bn1, ReLU and
+        the differentiable pool (K3, K7)."""
+        dt = self.compute_dtype
+        xs, w = x.to(dt), self.conv1.weight.to(dt)
+        conv = (stem_conv_diff(xs, w) if self.use_kernels and x.shape[1] == 1
+                else F.conv3d(xs, w, padding=3))
+        # bn1 on the f32 widening, the ReLU's output in the model's type
+        # (the reference's StemS2D: statistics of an f32 conv output)
+        y = _ndhwc(F.relu(self.bn1(conv.float())).to(dt))
+        pool = (maxpool3d_k3s2p1_diff if self.use_kernels
+                else maxpool3d_k3s2p1_ref)
+        return pool(y).permute(0, 4, 1, 2, 3)
 
     def library_stem(self, x):
         """The JAX package's other stem: a (t, 7, 7) conv at stride
@@ -387,7 +422,12 @@ class PoseNet3D(nn.Module):
 
     def forward(self, x):
         x = self.stem(x)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            if self.remat:
+                for block in layer:
+                    x = remat(block, x)
+            else:
+                x = layer(x)
         return self.head(x)
 
 

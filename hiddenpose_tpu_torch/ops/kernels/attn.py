@@ -149,64 +149,71 @@ def attend_split_ref(q, k, v, splits: int):
 
 
 LOG2E = 1.4426950408889634  # the kernel's base-2 exponentials' factor
-KEY_TILE = 64                 # keys a softmax update of the kernel takes
+KEY_TILE = 64       # keys a softmax update of the tensor-core form takes
+SIMT_KEY_TILE = 8   # and of the SIMT form (``attn.cu``'s CH)
+TC_DH = 32          # the head dim of the tensor-core form
 
 
 def attend_online_ref(q, k, v, chunk=None):
     """The kernel's softmax order in plain PyTorch, so that a computation
-    through it rounds where the kernel rounds: the tensor-core form's
-    (head dim 32; the SIMT form updates every 8 keys).  The keys pass in
-    tiles of 64.  A row keeps its running max n in base-2 units (the max score
-    times log2 e, over its chunk's tiles so far); a tile's weights are
-    p = 2^(s log2 e - n), rounded to ``v.dtype`` before ``p v`` (the row
-    sum l is taken before the rounding), and its ``p v`` and l enter the
-    chunk's sums scaled by 2^(n - n_last).  ``chunk``: keys a chunk, a
-    multiple of 64 (:func:`attend_chunk`; None, one chunk); the chunks
-    combine as :func:`attend_split_ref` combines them.  Scores, and an f32
-    ``p v``, as :func:`attend_3xtf32_ref`.  What is left against the
-    kernel is float32 rounding: the sums' order and ``ex2.approx``.  With
-    a bf16 v, :func:`attend_3xtf32_ref` rounds p against the row's final
-    max, which differs from the kernel's at every tile before the max."""
+    through it rounds where the kernel rounds.  The keys pass in tiles:
+    64 in the tensor-core form (head dim 32), 8 in the SIMT form (every
+    other head dim).  A row keeps its running max n in base-2 units (the
+    max score times log2 e, over its chunk's tiles so far); a tile's
+    weights are p = 2^(s log2 e - n), rounded to ``v.dtype`` before
+    ``p v`` (the row sum l is taken before the rounding), and its ``p v``
+    and l enter the chunk's sums scaled by 2^(n - n_last).  ``chunk``:
+    keys a chunk, a multiple of 64 (:func:`attend_chunk`; None, one
+    chunk); the chunks combine as :func:`attend_split_ref` combines them.
+    Scores, and an f32 ``p v``, as :func:`attend_3xtf32_ref` at head dim
+    32, plain f32 products at the others (the SIMT form's fp32 FMA).  What
+    is left against the kernel is float32 rounding: the sums' order,
+    ``ex2.approx`` and the SIMT form's fused multiply-add in the exponent.
+    With a bf16 v, :func:`attend_3xtf32_ref` rounds p against the row's
+    final max, which differs from the kernel's at every tile before the
+    max."""
     b, lq, dh = q.shape
     lk = k.shape[1]
-    tiles = -(-lk // KEY_TILE)
-    per = tiles if chunk is None else chunk // KEY_TILE
+    tile = KEY_TILE if dh == TC_DH else SIMT_KEY_TILE
+    tiles = -(-lk // tile)
+    per = tiles if chunk is None else chunk // tile
     if per < 1 or (chunk is not None and chunk % KEY_TILE):
         raise ValueError(f"chunk must be a multiple of {KEY_TILE}, got "
                          f"{chunk}")
     nchunks = -(-tiles // per)
     # groups a slice: about 2^27 scores, so that the full-width grouped
     # call (1024 groups of 1024 x 1048) runs in a few GB
-    step = max(1, (1 << 27) // (lq * nchunks * per * KEY_TILE))
+    step = max(1, (1 << 27) // (lq * nchunks * per * tile))
     return torch.cat([_online_slice(q[g:g + step], k[g:g + step],
-                                    v[g:g + step], nchunks, per)
+                                    v[g:g + step], nchunks, per, tile)
                       for g in range(0, b, step)])
 
 
-def _online_slice(q, k, v, nchunks, per):
+def _online_slice(q, k, v, nchunks, per, tile):
     g, lq, dh = q.shape
     lk = k.shape[1]
-    keys = nchunks * per * KEY_TILE
+    keys = nchunks * per * tile
+    bmm = _bmm_3xtf32 if dh == TC_DH else torch.bmm
     kt = torch.nn.functional.pad(k.float(), (0, 0, 0, keys - lk))
     kt = kt.transpose(1, 2).contiguous()
     if q.dtype == torch.float32:
-        s = _bmm_3xtf32(q, kt)
+        s = bmm(q, kt)
     else:
         s = torch.bmm(q.float(), kt)
     s[..., lk:] = float("-inf")
-    s = s.view(g, lq, nchunks, per, KEY_TILE)
+    s = s.view(g, lq, nchunks, per, tile)
     n = torch.cummax(s.amax(dim=-1) * LOG2E, dim=-1).values
     p = torch.exp2(s * LOG2E - n[..., None])
     del s
     w = torch.exp2(n - n[..., -1:])             # 2^(n - n_last) a tile
     l = (p.sum(dim=-1) * w).sum(dim=-1)         # (g, lq, chunks)
     vt = torch.nn.functional.pad(v, (0, 0, 0, keys - lk))
-    vt = vt.reshape(g * nchunks * per, KEY_TILE, dh)
-    pt = p.view(g, lq, nchunks * per, KEY_TILE).transpose(1, 2)
-    pt = pt.reshape(g * nchunks * per, lq, KEY_TILE)
+    vt = vt.reshape(g * nchunks * per, tile, dh)
+    pt = p.view(g, lq, nchunks * per, tile).transpose(1, 2)
+    pt = pt.reshape(g * nchunks * per, lq, tile)
     del p
     if v.dtype == torch.float32:
-        part = _bmm_3xtf32(pt, vt)
+        part = bmm(pt, vt)
     else:
         part = torch.bmm(pt.to(v.dtype).float(), vt.float())
     part = part.view(g, nchunks, per, lq, dh)
@@ -226,6 +233,14 @@ def attend_chunk(b: int, lq: int, lk: int, dh: int) -> int:
     Lk rounded up to 64 where the plan is one chunk).  Builds the kernel
     library: CUDA only."""
     return int(_build.library().hp_attend_chunk(b, lq, lk, dh))
+
+
+def attend_kernel_order(q, k, v):
+    """:func:`attend_online_ref` on the chunks of the kernel's plan for
+    this shape: the plain attention that rounds where the kernel rounds
+    (builds the kernel library: CUDA only)."""
+    b, lq, dh = q.shape
+    return attend_online_ref(q, k, v, attend_chunk(b, lq, k.shape[1], dh))
 
 
 def attend(q, k, v):

@@ -1,10 +1,10 @@
 """Batched Light-Cone-Transform reconstruction in PyTorch.
 
-Port of ``hiddenpose_tpu/ops/lct.py`` (``make_lct_params`` and
-``lct_apply``): radiometric falloff, M x M temporal resampling, 2x zero
-pad, one-sided rFFT, Wiener multiply, inverse rFFT, crop, inverse
-resampling, and for the 'bp' mode the LoG sharpening with the first slice
-zeroed.  The inverse filter is one complex64 tensor; the JAX package
+Port of ``hiddenpose_tpu/ops/lct.py`` (``make_lct_params``,
+``lct_apply`` and ``lct_apply_sharded``): radiometric falloff, M x M
+temporal resampling, 2x zero pad, one-sided rFFT, Wiener multiply,
+inverse rFFT, crop, inverse resampling, and for the 'bp' mode the LoG
+sharpening with the first slice zeroed.  The inverse filter is one complex64 tensor; the JAX package
 stores it as split real/imaginary planes only to work around its TPU
 runtime.
 """
@@ -142,6 +142,98 @@ def lct_apply(meas: torch.Tensor, params: LCTParams, time_begin: int = 0,
         vol = F.conv3d(padded, params.lapw[None, None])[:, 0]
         vol[:, :1] = 0.0
     return vol
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all over a group: ``x`` cut into ``n`` chunks along
+    ``split_dim``, chunk j sent to rank j, the chunks received concatenated
+    along ``concat_dim`` in rank order.  Its gradient is the reverse
+    all-to-all.  A complex tensor travels as its real view."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.args = (split_dim, concat_dim, group)
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, group = ctx.args
+        return _all_to_all(g, concat_dim, split_dim, group), None, None, None
+
+
+def _all_to_all(x, split_dim, concat_dim, group):
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    cplx = x.is_complex()
+    xs = torch.view_as_real(x) if cplx else x
+    xs = xs.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)
+    chunks = out.view(n, xs.shape[0] // n, *xs.shape[1:]).unbind(0)
+    y = torch.cat([c.movedim(0, split_dim) for c in chunks], dim=concat_dim)
+    return torch.view_as_complex(y.contiguous()) if cplx else y
+
+
+def lct_apply_sharded(meas: torch.Tensor, params: LCTParams, mesh,
+                      time_begin: int = 0,
+                      time_end: Optional[int] = None) -> torch.Tensor:
+    """:func:`lct_apply` with the padded (2T, 2N, 2N) FFT cube sharded on H
+    over ``mesh``'s 'model' axis (a ``parallel/mesh.py::Mesh``), the JAX
+    package's hand-rolled distributed FFT:
+
+    1. this rank takes its H slice of the padded cube (the batch is the
+       rank's own share of the data axis; every 'model' rank holds it
+       whole); rFFT over W and FFT over T on the slice;
+    2. an all-to-all moves the shards H -> T;
+    3. FFT over the now whole H, the Wiener multiply with this rank's T
+       slice of the inverse PSF, iFFT over H;
+    4. an all-to-all back T -> H; iFFT over T, irFFT over W;
+
+    then the crop and the inverse resampling of the whole volume, whose H
+    slices are gathered from the 'model' ranks.  Differentiable (each
+    all-to-all's gradient is the reverse one; the slice's and the
+    gather's are each other, as every 'model' rank computes the same
+    loss).  cuFFT through
+    ``torch.fft``.  The 'bp' mode's LoG sharpening is not applied, as in
+    the JAX function.  2T and 2N must divide by the 'model' size."""
+    from hiddenpose_tpu_torch.parallel.sharding_rules import (
+        GatherReplicated,
+        SliceReplicated,
+    )
+
+    T, N = params.time_size, params.image_size
+    if time_end is None:
+        time_end = time_begin + meas.shape[1]
+    x = embed_time_window(meas, time_begin, time_end, T)
+    b = x.shape[0]
+    if tuple(x.shape) != (b, T, N, N):
+        raise ValueError(f"bad meas shape {tuple(x.shape)}")
+    n, m = mesh.shape["model"], mesh.index("model")
+    if (2 * N) % n or (2 * T) % n:
+        raise ValueError(f"2T = {2 * T} and 2N = {2 * N} must divide by the "
+                         f"'model' size {n}")
+    group = mesh.group("model")
+    x = x.float()
+    power = 4 if params.material == "diffuse" else 2
+    x = x * (params.gridz ** power)[None, :, None, None]
+    x = _resample(params.mtx, x)
+
+    rows = SliceReplicated.apply(F.pad(x, (0, 0, 0, N)), 2, group, m)
+    pad = F.pad(rows, (0, N, 0, 0, 0, T))          # (b, 2T, 2N / n, 2N)
+    f = torch.fft.rfft(pad, dim=3)
+    f = torch.fft.fft(f, dim=1)
+    f = _AllToAll.apply(f, 1, 2, group)            # (b, 2T / n, 2N, N + 1)
+    f = torch.fft.fft(f, dim=2)
+    t = 2 * T // n
+    f = f * params.invpsf[m * t:(m + 1) * t][None]
+    f = torch.fft.ifft(f, dim=2)
+    f = _AllToAll.apply(f, 2, 1, group)            # (b, 2T, 2N / n, N + 1)
+    f = torch.fft.ifft(f, dim=1)
+    vol = torch.fft.irfft(f, n=2 * N, dim=3)
+    vol = GatherReplicated.apply(vol.contiguous(), 2, group, m)
+    vol = vol[:, :T, :N, :N]
+    return _resample(params.mtxi, vol)
 
 
 def lct_apply_bdthw(meas: torch.Tensor, params: LCTParams,

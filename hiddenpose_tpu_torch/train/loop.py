@@ -1,7 +1,8 @@
 """The training loop over epochs.
 
 Port of ``hiddenpose_tpu/train/loop.py`` as a function of (Config, data
-source), on one device:
+source), on one device or, in a multi-process job, data parallel over
+every rank (below):
 
 * seed ``cfg.train.seed`` for the initial weights (or ``weights``);
 * Adam with the MultiStep schedule, its count ``TrainState.step``
@@ -25,8 +26,18 @@ source), on one device:
   parameter under the JAX tree's tags), best-effort as in the JAX loop:
   a failure (no matplotlib, as on the GPU host) is a warning.
 
-Not ported: the device mesh (multi-GPU, ROADMAP Queue 1 item 9), which
-raises.
+The mesh (the JAX loop's ``use_mesh``, always on): when
+``torch.distributed`` is initialised with more than one rank
+(``parallel/distributed.py::initialize``, as ``cli/train.py --multihost``
+calls it), the loop builds a data-parallel mesh over the ranks
+(``make_mesh()``, 'model' of size 1, as the JAX loop's), replicates the
+state from rank 0, feeds each rank its 'data' shard of the pipeline and
+runs the data-parallel step (``train/step.py``: the global batch's loss,
+gradients, BatchNorm statistics and Adam update).  Rank 0 alone writes
+the logs, the metrics and the checkpoints; a checkpoint holds the whole
+parameters and moments, so it restores in a one-GPU run.  Tensor
+parallelism is not a loop option, as in the JAX package: the DP x TP step
+is driven by ``graft_entry.py::dryrun_multichip``.
 
 ``TrainResult.timings`` holds, per step, the seconds the loop spent and
 the seconds of that it waited on the loader, and per checkpoint its path
@@ -46,11 +57,13 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from hiddenpose_tpu_torch import resolve_device
 from hiddenpose_tpu_torch.data.dataset import DataPipeline, SyntheticSource
 from hiddenpose_tpu_torch.data.device_prefetch import device_prefetch
 from hiddenpose_tpu_torch.models.nlospose import build_nlospose
+from hiddenpose_tpu_torch.parallel.mesh import make_mesh, replicate
 from hiddenpose_tpu_torch.train import checkpoint as ckpt
 from hiddenpose_tpu_torch.train.pretrain import (
     freeze_autoencoder,
@@ -58,7 +71,11 @@ from hiddenpose_tpu_torch.train.pretrain import (
 )
 from hiddenpose_tpu_torch.train.state import TrainState
 from hiddenpose_tpu_torch.train.step import make_train_step
-from hiddenpose_tpu_torch.utils.logging import MetricWriter, create_logger
+from hiddenpose_tpu_torch.utils.logging import (
+    MetricWriter,
+    NullWriter,
+    create_logger,
+)
 
 METRICS = ("loss", "joint_loss", "voxel_loss")
 
@@ -90,9 +107,17 @@ def train(
     None) from ``cfg.train.begin_epoch`` to ``cfg.train.end_epoch``.
     ``weights``: a state_dict to start from instead of the seeded
     initialisation.  ``device``: the GPU by default (raises without one);
-    ``"cpu"`` only when asked for."""
+    ``"cpu"`` only when asked for; in a multi-process job this rank's
+    device (``distributed.local_device``), and the pipeline's shard the
+    rank's 'data' coordinate (the module's docstring)."""
     device = resolve_device(device)
-    logger = create_logger(cfg.log_dir, phase=cfg.phase)
+    mesh = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_mesh()
+        shard_index, shard_count = mesh.index("data"), mesh.n_data
+    main = mesh is None or mesh.rank == 0
+    logger = (create_logger(cfg.log_dir, phase=cfg.phase) if main
+              else logging.getLogger(f"hiddenpose.rank{mesh.rank}"))
     model, lct = build_nlospose(cfg.model, device=device, seed=cfg.train.seed)
     if weights is not None:
         model.load_state_dict(weights)
@@ -126,8 +151,12 @@ def train(
             begin_epoch = epoch + 1
             logger.info(f"resumed from {path} at epoch {begin_epoch}")
 
+    if mesh is not None:
+        replicate(mesh, state)
+        logger.info(f"data-parallel mesh over {mesh.size} ranks")
+
     train_step = make_train_step(
-        model, matmul_precision=cfg.train.matmul_precision)
+        model, matmul_precision=cfg.train.matmul_precision, mesh=mesh)
     timings = dict(step_s=[], wait_s=[], ckpt=[])
     window: List[Dict[str, torch.Tensor]] = []
     last: Dict[str, float] = {}
@@ -157,9 +186,11 @@ def train(
                      "aborting (restore the last checkpoint to resume)")
         return result(bad)
 
-    writer = MetricWriter(cfg.log_dir)
+    writer = MetricWriter(cfg.log_dir) if main else NullWriter()
 
     def save(epoch, name=None):
+        if not main:
+            return
         t0 = time.perf_counter()
         path = ckpt.save_checkpoint(workdir, state, epoch, global_iter,
                                     name=name)
@@ -196,7 +227,7 @@ def train(
                 timings["step_s"].append(time.perf_counter() - t0)
                 timings["wait_s"].append(t1 - t0)
 
-                if viz_every and global_iter % viz_every == 0:
+                if main and viz_every and global_iter % viz_every == 0:
                     log_visuals(cfg, model, batch, lct, global_iter,
                                 writer=writer if viz_histograms else None)
 

@@ -33,7 +33,7 @@ pass ``cfg.train.matmul_precision`` for the JAX package's default.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -42,6 +42,12 @@ from hiddenpose_tpu_torch.models.nlospose import NlosPose
 from hiddenpose_tpu_torch.ops.kernels import conv3mxu
 from hiddenpose_tpu_torch.ops.lct import LCTParams
 from hiddenpose_tpu_torch.ops.softargmax import softmax_integral
+from hiddenpose_tpu_torch.parallel.mesh import (
+    Mesh,
+    average_gradients,
+    data_parallel,
+    mean_over_data,
+)
 from hiddenpose_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -76,12 +82,23 @@ def precision_scope(model, precision: str):
                 torch.backends.cudnn.allow_tf32 = saved[1]
 
 
-def make_train_step(model: NlosPose, matmul_precision: str = "highest"):
+def make_train_step(model: NlosPose, matmul_precision: str = "highest",
+                    mesh: Optional[Mesh] = None):
     """Returns train_step(state, batch, lct) -> metrics, which puts the
     model in training mode, takes one Adam step on ``state`` (whose model
     must be ``model``) at ``matmul_precision`` ('default', 'high' or
     'highest'; see the module's docstring) and returns the detached loss,
-    joint_loss and voxel_loss of the forward before the update."""
+    joint_loss and voxel_loss of the forward before the update.
+
+    With ``mesh`` (``parallel/mesh.py``) the step is data parallel: each
+    rank passes its share of the global batch (``shard_batch``), and the
+    step is the single-process step on the global batch, as the JAX step
+    ``jit`` over a batch sharded on 'data' is: the BatchNorm moments and
+    the Dice sums are the global batch's (``data_parallel``), the
+    gradients are averaged over 'data' before the Adam update, and the
+    metrics are the global batch's.  The joint loss (a sum over the local
+    batch over its size) and the BCE mean average correctly over equal
+    shares.  The collectives run on a mesh of one rank too."""
     conv3mxu.check_precision(matmul_precision)
 
     def train_step(state: TrainState, batch: Batch,
@@ -89,7 +106,7 @@ def make_train_step(model: NlosPose, matmul_precision: str = "highest"):
         if state.model is not model:
             raise ValueError("state.model is not the model of this step")
         model.train()
-        with precision_scope(model, matmul_precision):
+        with precision_scope(model, matmul_precision), data_parallel(mesh):
             heatmaps, refine = model(batch["meas"], lct)
             joint_loss = l2_joint_location_loss(
                 heatmaps, batch["joints"], batch["joints_vis"])
@@ -99,9 +116,13 @@ def make_train_step(model: NlosPose, matmul_precision: str = "highest"):
             loss = joint_loss + voxel_loss
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        metrics = torch.stack([loss, joint_loss, voxel_loss]).detach()
+        if mesh is not None:
+            average_gradients([p for g in state.optimizer.param_groups
+                               for p in g["params"]], mesh)
+            metrics = mean_over_data(metrics, mesh)
         state.apply_gradients()
-        return {"loss": loss.detach(), "joint_loss": joint_loss.detach(),
-                "voxel_loss": voxel_loss.detach()}
+        return dict(zip(("loss", "joint_loss", "voxel_loss"), metrics))
 
     return train_step
 

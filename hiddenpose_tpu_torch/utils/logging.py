@@ -41,6 +41,20 @@ def create_logger(log_dir: str, name: str = "hiddenpose",
     return logger
 
 
+class NullWriter:
+    """A metric sink that writes nothing (a multi-process job's ranks
+    other than 0)."""
+
+    def scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def histogram(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class MetricWriter:
     """Scalar metric sink: JSONL always (metrics.jsonl in log_dir),
     TensorBoard events too when ``torch.utils.tensorboard`` imports."""

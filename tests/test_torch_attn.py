@@ -288,22 +288,23 @@ def test_split_matches_jax_reference_at_a_joint_token_read_shape(splits):
                                **ATTN_F32_TOL)
 
 
-def _attend_tile_loop(q, k, v, chunk):
-    """The kernel's loop written out: per chunk, 64-key tiles, a running
-    max in base-2 units, acc = acc * 2^(m - n) + round(p) v, then the
-    chunks combined; the output before its cast, float32."""
+def _attend_tile_loop(q, k, v, chunk, tile=64):
+    """The kernel's loop written out: per chunk, ``tile``-key tiles (64
+    in the tensor-core form, 8 in the SIMT form), a running max in base-2
+    units, acc = acc * 2^(m - n) + round(p) v, then the chunks combined;
+    the output before its cast, float32."""
     lk = k.shape[1]
     ms, ls, accs = [], [], []
     for c0 in range(0, lk, chunk):
         m = l = acc = None
-        for t0 in range(c0, min(c0 + chunk, lk), 64):
-            s = torch.bmm(q.double(), k[:, t0:t0 + 64].double()
+        for t0 in range(c0, min(c0 + chunk, lk), tile):
+            s = torch.bmm(q.double(), k[:, t0:t0 + tile].double()
                           .transpose(1, 2)).float()
             n = s.amax(-1, keepdim=True) * 1.4426950408889634
             n = n if m is None else torch.maximum(m, n)
             p = torch.exp2(s * 1.4426950408889634 - n)
             part = torch.bmm(p.to(v.dtype).float(),
-                             v[:, t0:t0 + 64].float())
+                             v[:, t0:t0 + tile].float())
             if m is None:
                 acc, l = part, p.sum(-1, keepdim=True)
             else:
@@ -359,6 +360,28 @@ def test_online_order_rounds_where_the_kernel_loop_does(chunk):
                                atol=1e-3)
     same = (got == want).float().mean().item()
     other = (final_max == want).float().mean().item()
+    assert same >= 0.99 and other < same, (same, other)
+
+
+@pytest.mark.parametrize("chunk", [None, 128])
+def test_online_order_takes_the_simt_tile_off_head_dim_32(chunk):
+    """Off head dim 32 the kernel's SIMT form updates its running max
+    every 8 keys: at head dim 8 the kernel-order version follows that
+    loop (8-key tiles) as closely as it follows the tensor-core loop
+    above, and further from the 64-key loop."""
+    shape = (2, 32, 301, 8)
+    q, k, v = (_t(a) for a in _qkv(shape, 13))
+    ramp = torch.linspace(0, 6, shape[2])[None, :, None]
+    k = k + ramp * q.mean(dim=1, keepdim=True).sign() / shape[3] ** 0.5
+    vb = v.to(torch.bfloat16)
+    want = _attend_tile_loop(q, k, vb, chunk or shape[2], tile=8)
+    got = attend_online_ref(q, k, vb, chunk)
+    wide = _attend_tile_loop(q, k, vb, chunk or shape[2], tile=64)
+    want, wide = want.to(torch.bfloat16), wide.to(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=1e-3)
+    same = (got == want).float().mean().item()
+    other = (wide == want).float().mean().item()
     assert same >= 0.99 and other < same, (same, other)
 
 

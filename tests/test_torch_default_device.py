@@ -24,6 +24,7 @@ from hiddenpose_tpu_torch.cli import train as cli_train
 from hiddenpose_tpu_torch.config import Config
 from hiddenpose_tpu_torch.data.dataset import SyntheticSource
 from hiddenpose_tpu_torch.eval.harness import evaluate
+from hiddenpose_tpu_torch.graft_entry import dryrun_multichip, entry
 from hiddenpose_tpu_torch.models.deepvoxels import build_deepvoxels
 from hiddenpose_tpu_torch.models.nlospose import build_nlospose
 from hiddenpose_tpu_torch.models.posenet3d import build_posenet3d
@@ -32,6 +33,8 @@ from hiddenpose_tpu_torch.models.timesformer import build_timesformer
 from hiddenpose_tpu_torch.models.tokenpose import build_tokenpose
 from hiddenpose_tpu_torch.ops.lct import make_lct_params
 from hiddenpose_tpu_torch.ops.resample import MultiViewResampler
+from hiddenpose_tpu_torch.parallel import distributed
+from hiddenpose_tpu_torch.parallel.mesh import Mesh
 from hiddenpose_tpu_torch.serve import InferenceServer
 from hiddenpose_tpu_torch.train.loop import train
 from hiddenpose_tpu_torch.train.state import TrainState
@@ -112,6 +115,15 @@ ENTRY_POINTS = {
         build_timesformer(**TS_KW, **kw).parameters()).device,
     "train": _train,
     "evaluate": _evaluate,
+    "initialize": lambda **kw: (distributed.initialize(**kw),
+                                distributed.local_device(**kw))[1],
+    "build_nlospose spatial_mesh": lambda **kw: next(build_nlospose(
+        CFG.model, spatial_mesh=Mesh(1, 1, 0, (None, None),
+                                     torch.device("cpu")),
+        **kw)[0].parameters()).device,
+    "entry": lambda **kw: entry(**kw)[1][1].device,
+    "dryrun_multichip": lambda **kw: torch.device(
+        dryrun_multichip(1, **kw)["device"]),
     "cli.train": _cli_train,
     "cli.test": _cli_test,
 }

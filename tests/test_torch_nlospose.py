@@ -171,22 +171,20 @@ def test_unet_matches_jax():
 
 
 def test_unsupported_backbone_raises():
-    """A backbone the port does not have raises, and so does the
-    ``posenet2d`` backbone in bfloat16 (ported in float32 only); the
-    ``posenet2d`` backbone itself builds since it was ported."""
+    """A backbone the port does not have raises; the ``posenet2d``
+    backbone builds in float32 and, since it was ported in bfloat16 too
+    (``tests/test_torch_posenet2d_bf16.py``), in bfloat16."""
     import dataclasses
 
     m = Config().tiny(16).model
     with pytest.raises(NotImplementedError):
         build_nlospose(dataclasses.replace(m, backbone="resnet18"),
                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_nlospose(dataclasses.replace(m, backbone="posenet2d",
-                                           compute_dtype="bfloat16"),
-                       device="cpu")
-    model, _ = build_nlospose(dataclasses.replace(m, backbone="posenet2d"),
-                              device="cpu")
-    assert type(model.pose_net).__name__ == "ResPoseNet2D"
+    for dtype in ("float32", "bfloat16"):
+        model, _ = build_nlospose(dataclasses.replace(
+            m, backbone="posenet2d", compute_dtype=dtype), device="cpu")
+        assert type(model.pose_net).__name__ == "ResPoseNet2D"
+        assert model.pose_net.head.compute_dtype == getattr(torch, dtype)
 
 
 # ------------------------------------------------- the UNet's output conv

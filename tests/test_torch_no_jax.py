@@ -72,6 +72,12 @@ MODULES = [
     "hiddenpose_tpu_torch.viz",
     "hiddenpose_tpu_torch.viz.visualizer",
     "hiddenpose_tpu_torch.viz.heatmap3d",
+    "hiddenpose_tpu_torch.parallel",
+    "hiddenpose_tpu_torch.parallel.mesh",
+    "hiddenpose_tpu_torch.parallel.distributed",
+    "hiddenpose_tpu_torch.parallel.sharding_rules",
+    "hiddenpose_tpu_torch.utils.remat",
+    "hiddenpose_tpu_torch.graft_entry",
 ]
 # packages the GPU host does not have, which the JAX package's data, log
 # and checkpoint modules use: the port names none of them, except that the
