@@ -23,6 +23,7 @@ from hiddenpose_tpu.train import alt_steps as jax_alt
 from hiddenpose_tpu_torch import losses
 from hiddenpose_tpu_torch.ops.softargmax import softmax_integral_normalized
 from hiddenpose_tpu_torch.train.alt_steps import simdr_loss
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 RTOL, GRAD_RTOL, ATOL = 1e-6, 1e-5, 1e-7
 

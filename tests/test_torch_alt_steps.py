@@ -63,6 +63,7 @@ from hiddenpose_tpu_torch.utils.peaked import (
     peaked_state_dict,
     peaked_transformer_state_dict,
 )
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE = 32
 LR = 1e-3

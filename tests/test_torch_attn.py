@@ -35,6 +35,7 @@ from hiddenpose_tpu_torch.ops.kernels.attn import (
     attend_routed,
     attend_supported,
 )
+import torch_threads
 
 # (B, Lq, Lk, dh): the shapes of tests/test_attn_vmem.py (ragged Lk below
 # and above 128, the Sformer's group shape at a small B, a small-Lq wide
@@ -198,9 +199,10 @@ def test_3xtf32_emulation_is_as_close_to_float64_as_plain_f32(shape, q_scale):
     """Three TF32 passes per product: the error against a float64 attention
     is at most twice the plain f32 version's own."""
     q, k, v = _qkv(shape, 7, q_scale=q_scale)
-    want = _attention64(q, k, v)
-    got = attend_3xtf32_ref(_t(q), _t(k), _t(v)).numpy()
-    plain = attend_ref(_t(q), _t(k), _t(v)).numpy()
+    with torch_threads.fixed(1):  # one summation order in every run
+        want = _attention64(q, k, v)
+        got = attend_3xtf32_ref(_t(q), _t(k), _t(v)).numpy()
+        plain = attend_ref(_t(q), _t(k), _t(v)).numpy()
     assert np.abs(got - want).max() <= 2 * np.abs(plain - want).max()
 
 
@@ -216,9 +218,10 @@ def test_one_tf32_pass_fails_the_float64_check(shape, q_scale):
     """One TF32 pass per product is far outside the limit that the
     three-pass form meets."""
     q, k, v = _qkv(shape, 7, q_scale=q_scale)
-    want = _attention64(q, k, v)
-    got = _attend_one_tf32_pass(_t(q), _t(k), _t(v)).numpy()
-    plain = attend_ref(_t(q), _t(k), _t(v)).numpy()
+    with torch_threads.fixed(1):  # one summation order in every run
+        want = _attention64(q, k, v)
+        got = _attend_one_tf32_pass(_t(q), _t(k), _t(v)).numpy()
+        plain = attend_ref(_t(q), _t(k), _t(v)).numpy()
     assert np.abs(got - want).max() > 2 * np.abs(plain - want).max()
 
 

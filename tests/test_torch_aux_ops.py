@@ -30,6 +30,7 @@ from hiddenpose_tpu.ops import wave as jax_wave
 from hiddenpose_tpu_torch.ops import lct as port_lct
 from hiddenpose_tpu_torch.ops import lct_reference as golden
 from hiddenpose_tpu_torch.ops import resample, wave
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 
 @pytest.mark.parametrize("wavelength", [0.05, 0.2], ids=["even", "odd"])

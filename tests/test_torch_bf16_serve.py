@@ -77,6 +77,7 @@ from hiddenpose_tpu_torch.serve import InferenceServer
 from hiddenpose_tpu_torch.train.step import make_forward, make_train_step
 from hiddenpose_tpu_torch.utils.jax_bridge import state_dict_from_jax
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE = 16
 BF16 = jnp.bfloat16

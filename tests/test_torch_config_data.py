@@ -13,6 +13,7 @@ from hiddenpose_tpu.data.synthetic import make_batch as jax_make_batch
 from hiddenpose_tpu.data.synthetic import make_sample as jax_make_sample
 from hiddenpose_tpu_torch import config
 from hiddenpose_tpu_torch.data.synthetic import make_batch, make_sample
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 PRESETS = {
     "default": lambda c: c.default_config(),

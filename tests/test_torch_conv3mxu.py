@@ -40,6 +40,7 @@ from hiddenpose_tpu_torch.ops.kernels.conv3mxu import (
     tf32_split,
     unpack_weights,
 )
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SHAPES = [
     # (b, d, h, w, cin, cout), as tests/test_conv3mxu.py::SHAPES

@@ -26,6 +26,7 @@ from hiddenpose_tpu_torch.ops.kernels.conv3p import (
     conv3_planes_tiled_ref,
     tile_plan,
 )
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SHAPE = (2, 8, 8, 16)  # (B, D, H, W), as the JAX kernel's own tests use
 

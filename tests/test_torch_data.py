@@ -43,6 +43,7 @@ from hiddenpose_tpu_torch import config
 from hiddenpose_tpu_torch.data import dataset, native_loader
 from hiddenpose_tpu_torch.data import preprocess as pp
 from hiddenpose_tpu_torch.data.device_prefetch import device_prefetch
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 DECODE_TOL = 6e-3  # tests/test_native_loader.py: native vs cv2
 PRESETS = {

@@ -47,6 +47,7 @@ from hiddenpose_tpu_torch.utils.jax_bridge import (
     layout_state_dict_from_jax,
     layout_to_jax,
 )
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 BF16 = jnp.bfloat16
 

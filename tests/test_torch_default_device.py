@@ -38,6 +38,7 @@ from hiddenpose_tpu_torch.parallel.mesh import Mesh
 from hiddenpose_tpu_torch.serve import InferenceServer
 from hiddenpose_tpu_torch.train.loop import train
 from hiddenpose_tpu_torch.train.state import TrainState
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 CFG = Config().tiny(16)
 TS_KW = dict(dim=16, num_frames=2, image_size=8, patch_size=4, channels=1,

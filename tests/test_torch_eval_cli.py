@@ -50,6 +50,7 @@ from hiddenpose_tpu_torch.train.state import TrainState
 from hiddenpose_tpu_torch.utils import logging as port_logging
 from hiddenpose_tpu_torch.utils import meters
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 ROOT = Path(__file__).resolve().parents[1]
 SIZE = 16
@@ -63,16 +64,6 @@ BOOT = ("import runpy, sys; sys.modules['tensorflow'] = None; "
 def no_tensorflow(monkeypatch):
     if "tensorflow" not in sys.modules:
         monkeypatch.setitem(sys.modules, "tensorflow", None)
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    """The tier-1 command runs six test processes at once; two torch
-    threads each keep the CPU ops from waiting on displaced threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name", ["mpjpe", "pa_mpjpe", "pck"])
@@ -164,7 +155,7 @@ def test_evaluate_max_batches_and_device_check():
 
 
 def _run(module, *args, timeout=300):
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
     return subprocess.run([sys.executable, "-c", BOOT, module, *args],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=timeout)

@@ -18,6 +18,7 @@ from hiddenpose_tpu.models.nlospose import build_nlospose as jax_build
 from hiddenpose_tpu.train.step import make_forward as jax_make_forward
 from hiddenpose_tpu_torch.graft_entry import dryrun_multichip, entry
 from hiddenpose_tpu_torch.utils.jax_bridge import to_jax
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE = 16
 

@@ -28,6 +28,7 @@ from hiddenpose_tpu.utils.torch_import import (
     convert_unet,
     _Taker,
 )
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 REF = "/root/reference"
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from hiddenpose_tpu_torch.ops import kernels as K
 from hiddenpose_tpu_torch.ops.kernels import conv3mxu, conv3p
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 pytestmark = pytest.mark.cuda
 

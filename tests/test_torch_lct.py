@@ -26,6 +26,7 @@ from hiddenpose_tpu_torch.ops import lct as port_lct
 from hiddenpose_tpu_torch.ops import normalize as port_norm
 from hiddenpose_tpu_torch.ops import psf as port_psf
 from hiddenpose_tpu_torch.ops.softargmax import softmax_integral
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 N, T, BIN_LEN = 16, 16, 0.04
 

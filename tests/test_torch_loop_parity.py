@@ -72,6 +72,7 @@ from hiddenpose_tpu_torch.train.loop import train
 from hiddenpose_tpu_torch.train.state import TrainState
 from hiddenpose_tpu_torch.utils.jax_bridge import adam_state_from_jax, to_jax
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE = 32
 TRAIN = dict(end_epoch=2, lr=1e-4, lr_step=(2, 4, 13),
@@ -97,16 +98,11 @@ def _losses(log_dir):
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parity")
     mp = pytest.MonkeyPatch()
-    # the tier-1 command runs six test processes at once: two torch
-    # threads keep the CPU ops from waiting on displaced threads
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
     try:
         if "tensorflow" not in sys.modules:
             mp.setitem(sys.modules, "tensorflow", None)
         yield _run_both(tmp, mp)
     finally:
-        torch.set_num_threads(threads)
         mp.undo()
         shutil.rmtree(tmp, ignore_errors=True)  # ~3 GB of checkpoints
 

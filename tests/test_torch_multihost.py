@@ -50,6 +50,7 @@ from torch_gloo import (
     wait_all,
 )
 from torch_parallel_workers import IdSource
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE = 16
 

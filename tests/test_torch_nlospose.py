@@ -33,6 +33,7 @@ from hiddenpose_tpu_torch.models.nlospose import NlosPose, build_nlospose
 from hiddenpose_tpu_torch.train.step import make_forward
 from hiddenpose_tpu_torch.utils.jax_bridge import state_dict_from_jax
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,6 +13,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -42,6 +42,7 @@ from hiddenpose_tpu_torch.parallel.sharding_rules import params_tp_sharding
 from hiddenpose_tpu_torch.utils.jax_bridge import to_jax
 from torch_gloo import run_ranks
 from torch_parallel_workers import _lct_inputs
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 LCT_SIZE = 16
 

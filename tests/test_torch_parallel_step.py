@@ -36,6 +36,7 @@ from hiddenpose_tpu_torch.train.state import TrainState
 from hiddenpose_tpu_torch.train.step import make_train_step
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
 from torch_gloo import start_ranks
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE, B = 16, 4
 LR = 1e-3

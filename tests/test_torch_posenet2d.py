@@ -79,6 +79,7 @@ from hiddenpose_tpu_torch.utils.jax_bridge import (
     to_jax,
 )
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 STEP_SIZE = 64
 LAYERS = (1, 1, 1, 1)

@@ -46,6 +46,7 @@ from hiddenpose_tpu_torch.models import posenet2d
 from hiddenpose_tpu_torch.models.nlospose import NlosPose, build_nlospose
 from hiddenpose_tpu_torch.utils.jax_bridge import posenet2d_to_jax, to_jax
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 LAYERS = (1, 1, 1, 1)
 PART, WHOLE, AWAY = 0.1, 2.5, 0.25

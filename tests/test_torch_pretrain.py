@@ -44,6 +44,7 @@ from hiddenpose_tpu_torch.train import pretrain
 from hiddenpose_tpu_torch.train.state import TrainState
 from hiddenpose_tpu_torch.train.step import make_train_step
 from hiddenpose_tpu_torch.utils.jax_bridge import to_jax
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE = 32
 
@@ -64,17 +65,6 @@ def _weights(seed):
 
 @pytest.fixture(scope="module")
 def steps(tmp_path_factory):
-    # the tier-1 command runs six test processes at once: two torch
-    # threads keep the CPU ops from waiting on displaced threads
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        return _steps(tmp_path_factory)
-    finally:
-        torch.set_num_threads(threads)
-
-
-def _steps(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pretrain")
     m = Config().tiny(SIZE).model
     batch = make_batch([0, 1], m.time_size, m.image_size[0], m.grid_dim,

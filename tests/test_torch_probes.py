@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from hiddenpose_tpu_torch.ops.kernels import KERNELS, PROBES, probes
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 CIN, TD, TH = 8, 4, 4
 NC = TD // 2 * TH

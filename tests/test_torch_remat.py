@@ -46,6 +46,7 @@ from hiddenpose_tpu_torch.train.state import TrainState
 from hiddenpose_tpu_torch.train.step import make_train_step
 from hiddenpose_tpu_torch.utils.jax_bridge import state_dict_from_jax, to_jax
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE = 32
 OFF = dict(stage_remat=False, posenet_remat=False, posenet_remat_stem=False)

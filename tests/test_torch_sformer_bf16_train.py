@@ -46,6 +46,7 @@ from hiddenpose_tpu_torch.utils.jax_bridge import (
     sformer_state_dict_from_jax,
 )
 from hiddenpose_tpu_torch.utils.peaked import peaked_transformer_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 BF16 = jnp.bfloat16
 LR = 1e-3

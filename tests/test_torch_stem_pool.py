@@ -30,6 +30,7 @@ from hiddenpose_tpu_torch.ops.kernels import (
     stem_conv_raw,
 )
 from hiddenpose_tpu_torch.ops.kernels._tf32 import tf32_split
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 
 def _stem_inputs(seed, shape=(1, 16, 16, 16, 1)):

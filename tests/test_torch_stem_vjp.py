@@ -31,6 +31,7 @@ from hiddenpose_tpu_torch.ops.stem_vjp import (
     stem_conv_dk,
     stem_conv_dx,
 )
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 TOL = 1e-5
 

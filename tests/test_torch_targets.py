@@ -9,6 +9,7 @@ import pytest
 
 from hiddenpose_tpu.data import targets as jax_targets
 from hiddenpose_tpu_torch.data import targets
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 
 def _joints(seed, n, hi, dims=3):

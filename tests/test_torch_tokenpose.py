@@ -28,6 +28,7 @@ from hiddenpose_tpu_torch.utils.jax_bridge import (
     sformer_state_dict_from_jax,
 )
 from hiddenpose_tpu_torch.utils.peaked import peaked_transformer_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 KW = dict(feature_size=(16, 16), patch_size=(4, 4), num_keypoints=5, dim=16,
           channels=8, depth=2, heads=2, mlp_ratio=3, heatmap_size=(8, 12))

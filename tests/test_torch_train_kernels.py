@@ -3,7 +3,8 @@ on the CPU, against the JAX package.
 
 * The plain versions the CPU wrappers run are held against the Pallas
   kernels in interpret mode, as the JAX package's own tests call them, and
-  against the JAX autodiff those kernels replace.  Tolerances: K5 and K6
+  against the JAX autodiff those kernels replace (K6 against the Pallas
+  wgrad in ``test_torch_train_kernels_wgrad.py``).  Tolerances: K5 and K6
   are f32 sums in another order, 1e-5 of the output's max; K7 splits ties
   by powers of two, so it is exact against the autodiff of the XLA chain
   and within 2 ulp (of the largest cotangent it sums) of the Pallas
@@ -30,7 +31,6 @@ import jax.numpy as jnp
 from hiddenpose_tpu.models.unet3d import max_pool2_planes
 from hiddenpose_tpu.ops.pallas.conv3p import (
     conv3_planes_adjoint as jax_adjoint,
-    conv3_planes_wgrad as jax_wgrad,
     conv3_planes_xla,
 )
 from hiddenpose_tpu.ops.pallas.phase_pool import phase_maxpool_vjp_pallas
@@ -43,6 +43,7 @@ from hiddenpose_tpu.ops.space_to_depth import (
 from hiddenpose_tpu_torch.ops import kernels as K
 from hiddenpose_tpu_torch.ops.kernels import conv3p as conv3p_mod
 from hiddenpose_tpu_torch.ops.kernels.conv3mxu import flip_swap
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 
 def _np(rng, *shape, scale=1.0):
@@ -80,22 +81,6 @@ def test_adjoint_ref_matches_pallas(cin, cout, d, h, w, pad_mode):
     got = K.conv3_planes_adjoint(_t(dz), _t(k), pad_mode=pad_mode).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
-
-
-@pytest.mark.parametrize("pad_mode", ["zero", "edge"])
-@pytest.mark.parametrize("cin,cout,d,h,w", PALLAS_CASES)
-def test_wgrad_ref_matches_pallas(cin, cout, d, h, w, pad_mode):
-    if cin * cout > 32:
-        pytest.skip("the Pallas wgrad takes cin * cout <= 32")
-    rng = np.random.RandomState(cin * 10 + cout + 1)
-    x, dz = _np(rng, 2, cin, d, h, w), _np(rng, 2, cout, d, h, w)
-    dk_w, db_w = jax_wgrad(jnp.asarray(x), jnp.asarray(dz),
-                           pad_mode=pad_mode, interpret=True)
-    dk, db = K.conv3_planes_wgrad(_t(x), _t(dz), pad_mode=pad_mode)
-    for got, want in ((dk, dk_w), (db, db_w)):
-        want = np.asarray(want)
-        np.testing.assert_allclose(got.numpy(), want, rtol=0,
-                                   atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("pad_mode", ["zero", "edge"])

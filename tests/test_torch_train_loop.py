@@ -51,6 +51,7 @@ from hiddenpose_tpu_torch.utils.jax_bridge import (
     from_jax,
     to_jax,
 )
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 SIZE = 16
 
@@ -61,16 +62,6 @@ def no_tensorflow(monkeypatch):
     installed (seconds to import; the GPU host has none): hide it."""
     if "tensorflow" not in sys.modules:
         monkeypatch.setitem(sys.modules, "tensorflow", None)
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    """The tier-1 command runs six test processes at once; two torch
-    threads each keep the CPU ops from waiting on displaced threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -71,6 +71,7 @@ from hiddenpose_tpu_torch.ops import kernels as K
 from hiddenpose_tpu_torch.ops.kernels import conv3mxu
 from hiddenpose_tpu_torch.utils.jax_bridge import state_dict_from_jax, to_jax
 from hiddenpose_tpu_torch.utils.peaked import peaked_state_dict
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 BF16 = torch.bfloat16
 SIZE = 32

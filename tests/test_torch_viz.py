@@ -15,6 +15,7 @@ import sys
 import types
 
 import matplotlib
+import torch_threads  # noqa: F401  (caps this worker's CPU threads)
 
 matplotlib.use("Agg")
 
