@@ -2302,7 +2302,9 @@ def phase_train_precision(dev, smi, highest):
 
 def phase_probes(dev):
     """The four stem probes, through the script a user would run; then
-    each probe kernel against its plain version, timed."""
+    each probe kernel against its plain version (A and B exact, two calls
+    bit-identical), and its device time, the host's time a launch and its
+    bound (``scripts/torch_probe_times.py``)."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import torch_diag_stem_paired as diag
 
@@ -2320,18 +2322,26 @@ def phase_probes(dev):
     if counts != want or not all(r["ok"] for r in results):
         raise RuntimeError(f"probes failed: {results}; launches {counts}")
 
-    def launch_alone(row, entry, *args):
-        """The kernel's launch alone, into preallocated outputs (no wrapper
-        checks or allocation): the median and range of 20 readings of 50
-        launches, logged beside the row's time through the wrapper."""
-        reads = [cuda_ms(lambda: _build.launch(entry, *args), iters=50)
-                 for _ in range(20)]
-        row["launch_ms"] = float(np.median(reads))
-        row["launch_ms_range"] = [min(reads), max(reads)]
-        log(f"[8 probes] {row['shape']}: launch alone {row['launch_ms']:.4f}"
-            f" ms (median of 20, {min(reads):.4f}-{max(reads):.4f}), "
-            f"through the wrapper {row['ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms")
+    import torch_probe_times as ptimes
+
+    def device_readings(row, call):
+        """Beside the row's time through the wrapper (its ``ms``), the
+        probe's device time (a CUDA graph of 50 launches, replayed), the
+        host's time a launch with and without ``device=`` and 50 launches
+        back to back under CUDA events, each of the launch the wrapper
+        ``call`` makes."""
+        entry, args, keep = ptimes.recorded_launch(call)
+        t = ptimes.time_launch(entry, args, dev)
+        del keep
+        row.update(t)
+        log(f"[8 probes] {row['shape']}: device {t['device_ms']:.5f} ms a "
+            f"launch (a graph of 50, median of 20 replays, "
+            f"{t['device_ms_range'][0]:.5f}-{t['device_ms_range'][1]:.5f}); "
+            f"host {t['launch_us_device']:.2f} us a launch with device=, "
+            f"{t['launch_us_stream']:.2f} us without; 50 launches under "
+            f"events {t['events_ms']:.5f} ms each; through the wrapper "
+            f"{row['ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']})")
 
     inp = diag.probe_inputs(dev)
     rows = {}
@@ -2339,11 +2349,10 @@ def phase_probes(dev):
     row = compare("probe_im2col (8,8,8,128)->(80,8,128)",
                   lambda: K.probe_im2col(x), lambda: K.probe_im2col_ref(x),
                   iters=20, exact=True, moved=nbytes(x) + 4 * 80 * 8 * 128,
-                  tag="8 probes")
+                  tag="8 probes", repeats=True)
     row["per_run"] = 1
     rows["probe_im2col"] = [row]
-    patches = torch.empty_like(K.probe_im2col(x))
-    launch_alone(row, "hp_probe_im2col", x.data_ptr(), patches.data_ptr())
+    device_readings(row, lambda: K.probe_im2col(x))
     xb = inp["x_b"]
     row = compare("probe_slice_transpose (512,128)->2x(64,512)",
                   lambda: K.probe_slice_transpose(xb),
@@ -2351,9 +2360,10 @@ def phase_probes(dev):
                   exact=True, moved=2 * nbytes(xb), tag="8 probes")
     row["per_run"] = 1
     rows["probe_slice_transpose"] = [row]
-    lo, hi = (torch.empty_like(t) for t in K.probe_slice_transpose(xb))
-    launch_alone(row, "hp_probe_slice_transpose", xb.data_ptr(),
-                 lo.data_ptr(), hi.data_ptr(), *xb.shape)
+    first, second = K.probe_slice_transpose(xb), K.probe_slice_transpose(xb)
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(first, second)):
+        raise RuntimeError("probe_slice_transpose: two calls differ")
+    device_readings(row, lambda: K.probe_slice_transpose(xb))
     rows["probe_dot_f32"] = []
     a = inp["a"]
     for b in (inp["b"], inp["b64"]):
@@ -2368,15 +2378,16 @@ def phase_probes(dev):
                       moved=nbytes(a, b) + 4 * m * n,
                       ops=[(2 * m * kk * n, "f32")], tag="8 probes")
         row["per_run"] = 1
-        # the launch alone, into a preallocated output, beside the library
-        # call into one: 20 readings of each, in turns, 50 launches a
-        # reading; the medians are compared
+        # the launch alone, as the wrapper makes it (``device=``), into a
+        # preallocated output, beside the library call into one: 20
+        # readings of each, in turns, 50 launches a reading; the medians
+        # are compared
         out = torch.empty((m, n), device=dev)
         reads = {"launch": [], "library": []}
         for _ in range(20):
             reads["launch"].append(cuda_ms(lambda: _build.launch(
                 "hp_probe_dot_f32", a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, kk, n), iters=50))
+                out.data_ptr(), m, kk, n, device=dev), iters=50))
             reads["library"].append(cuda_ms(
                 lambda: torch.matmul(a, b, out=out), iters=50))
         row["launch_ms"] = float(np.median(reads["launch"]))
@@ -2394,6 +2405,7 @@ def phase_probes(dev):
             f"{row['library_ms']:.4f} ms")
         if not torch.equal(K.probe_dot_f32(a, b), K.probe_dot_f32(a, b)):
             raise RuntimeError("probe_dot_f32: two calls differ")
+        device_readings(row, lambda: K.probe_dot_f32(a, b))
         if row["launch_ms"] > PROBE_DOT_SLOWER * row["library_out_ms"]:
             raise RuntimeError(
                 f"probe_dot_f32 at N = {n}: the launch takes "
@@ -4626,6 +4638,8 @@ def run() -> int:
                       else "operations"),
             library_ms=(total("library_ms") if all(
                 x["library_ms"] is not None for x in on_path) else None)))
+        if "device_ms" in on_path[0]:  # the probes: a CUDA graph's replay
+            kernels[-1].update(device_ms=total("device_ms"))
         if "bound_fma_ms" in on_path[0]:  # K2, K4, K4-dx, K9: FMA bound
             kernels[-1].update(bound_fma_ms=total("bound_fma_ms"))
         if "err_vs_f64" in on_path[0]:  # those, K6, K2-/K4-bf16: float64

@@ -65,8 +65,8 @@ SIGNATURES = {
     "hp_attend_plan": [_L] + [_I] * 3,
     "hp_attend_chunk": [_L] + [_I] * 3,
     "hp_attend_fwd": [_P] * 5 + [_L] + [_I] * 5 + [_P],
-    "hp_probe_im2col": [_P] * 2 + [_P],
-    "hp_probe_slice_transpose": [_P] * 3 + [_I] * 2 + [_P],
+    "hp_probe_im2col": [_P] * 4 + [_I] + [_P],
+    "hp_probe_slice_transpose": [_P] * 3 + [_I] * 4 + [_P],
     "hp_probe_dot_f32": [_P] * 3 + [_I] * 3 + [_P],
 }
 

@@ -1,4 +1,4 @@
-"""Probe the operations the stem conv kernel relies on, one CUDA kernel each.
+"""Probe the operations the stem conv kernels rely on, one CUDA kernel each.
 
     python3 scripts/torch_diag_stem_paired.py
 
@@ -9,8 +9,11 @@ mis-computed, this one checks the same four operations as hand-written CUDA
 kernels (``hiddenpose_tpu_torch/csrc/diag_probes.cu``), each against the
 numpy / torch expression the TPU script compares with, on the same inputs:
 
-  A.   the paired im2col store through a shared-memory tile (exact);
-  B.   a lane-half read of a (512, 128) tile and its transpose (exact);
+  A.   the paired im2col store as tensor-map box loads, some at lanes that
+       are not 16-byte aligned, each stored by a tensor-map box (exact);
+  B.   a lane-half read of a (512, 128) tile by tensor-map boxes under the
+       128-byte swizzle, its transpose in shared memory, tensor-map stores
+       (exact);
   C.   the f32 FMA matrix product (512, 1024) @ (1024, 128), against
        ``torch.matmul`` with TF32 off (relative error <= 1e-5);
   C64. the same at N = 64.
