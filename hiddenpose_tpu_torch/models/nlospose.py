@@ -64,6 +64,7 @@ from hiddenpose_tpu_torch.ops.lct import (
     make_lct_params,
 )
 from hiddenpose_tpu_torch.ops.normalize import normalize_feature
+from hiddenpose_tpu_torch.utils import tracing
 from hiddenpose_tpu_torch.utils.remat import remat
 
 
@@ -114,11 +115,15 @@ class NlosPose(nn.Module):
         # their activations in the backward (utils/remat.py)
         stage = remat if self.cfg.stage_remat else (lambda f, *a: f(*a))
         b = meas.shape[0]
+        # device stages of a traced serving forward (utils/tracing.py)
+        tracing.stage("stage.recon")
         x = stage(self.feature_extraction, meas)     # (B, ch, T, H, W)
         ch = x.shape[1]
         vol = stage(self.lct, x.reshape(b * ch, *x.shape[2:]), lct)
         feature = normalize_feature(vol.reshape(b, ch, *vol.shape[1:]))
+        tracing.stage("stage.unet")
         refine = stage(self.autoencoder, feature)
+        tracing.stage(None)
         if self.cfg.backbone == "posenet2d":
             hm2d = self.pose_net(visible_net(feature + refine))
             bh, _, hh, ww = hm2d.shape

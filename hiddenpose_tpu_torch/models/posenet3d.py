@@ -103,6 +103,7 @@ from hiddenpose_tpu_torch.ops.kernels import (
 from hiddenpose_tpu_torch.ops.kernels.conv3mxu import route, router_admits
 from hiddenpose_tpu_torch.ops.stem_vjp import stem_conv_diff
 from hiddenpose_tpu_torch.parallel.mesh import active_mesh, sync_batch_norm
+from hiddenpose_tpu_torch.utils import tracing
 from hiddenpose_tpu_torch.utils.remat import recomputing, remat
 
 
@@ -429,6 +430,7 @@ class PoseNet3D(nn.Module):
         return y if self.no_max_pool else F.max_pool3d(y, 3, 2, 1)
 
     def forward(self, x):
+        tracing.stage("stage.trunk")
         x = self.stem(x)
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             if self.remat:
@@ -436,6 +438,7 @@ class PoseNet3D(nn.Module):
                     x = remat(block, x)
             else:
                 x = layer(x)
+        tracing.stage("stage.head")
         return self.head(x)
 
 

@@ -9,9 +9,16 @@ futures.
 
 The pipeline is one batch deep, as in the JAX package: CUDA launches are
 asynchronous, so the pump launches batch N+1 (a pinned-memory copy and the
-forward, with no host sync) before it fetches batch N's joints, and the
-device never idles while the host packs and resolves.  All device work
-stays on the pump thread; callers only touch numpy and futures.
+forward, with no host sync) before it fetches batch N's joints.  That fetch
+is queued on the same stream behind N+1's forward, so the host packs batch
+N+2 only after the device has finished N+1, and the device idles while it
+does.  All device work stays on the pump thread; callers only touch numpy
+and futures.
+
+With ``utils/tracing.py`` on, the server records each request's
+``serve.queue`` span and each batch's ``serve.pack``, ``serve.h2d``,
+``serve.forward`` and ``serve.fetch`` spans, and the forward's device
+stages.
 
 The default ``dtype`` is "bfloat16", the JAX server's default
 (``Config.with_bf16()``'s mixed precision); "float32" is the parity path.
@@ -37,6 +44,7 @@ from hiddenpose_tpu_torch import as_dtype, resolve_device
 from hiddenpose_tpu_torch.config import Config, t128_config
 from hiddenpose_tpu_torch.models.nlospose import build_nlospose
 from hiddenpose_tpu_torch.train.step import make_forward
+from hiddenpose_tpu_torch.utils import tracing
 
 _STOP = object()
 
@@ -82,6 +90,7 @@ class InferenceServer:
         self.batch_size = int(batch_size)
         self.max_wait = float(max_wait_ms) / 1000.0
         self.device = resolve_device(device)
+        self._cuda = self.device.type == "cuda"
         self.model, self.lct = build_nlospose(
             self.cfg.model, device=self.device, seed=rng_seed)
         if state_dict is not None:
@@ -93,7 +102,7 @@ class InferenceServer:
         self._q: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()
         self._stats = dict(
-            requests=0, batches=0, padded=0, device_s=0.0, errors=0)
+            requests=0, batches=0, padded=0, errors=0)
         self._closed = False
         self._pump = threading.Thread(
             target=self._run, name="hp-serve-pump", daemon=True)
@@ -114,7 +123,11 @@ class InferenceServer:
             raise ValueError(
                 f"expected meas {self._meas_shape}, got {meas.shape}")
         fut: Future = Future()
-        self._q.put((meas, fut))
+        # with tracing on: the request's id and arrival, to which the pump
+        # adds the moment it takes the request into a batch
+        stamp = ([tracing.new_id(), tracing.now_ns()] if tracing.enabled()
+                 else None)
+        self._q.put((meas, fut, stamp))
         return fut
 
     def infer(self, meas: np.ndarray) -> Dict[str, np.ndarray]:
@@ -127,16 +140,13 @@ class InferenceServer:
         self.submit(np.zeros(self._meas_shape, np.float32)).result()
 
     def stats(self) -> Dict[str, float]:
-        """Counters + derived rates.  ``volumes_per_sec`` is a lower bound
-        under load: per-batch launch-to-fetch spans overlap across the
-        one-deep pipeline, so their sum exceeds wall time."""
+        """Counters (requests, batches, padded slots, failed batches) and
+        ``mean_fill``, the requests over the batches' slots."""
         with self._lock:
             s = dict(self._stats)
         s["mean_fill"] = (
             s["requests"] / (s["batches"] * self.batch_size)
             if s["batches"] else 0.0)
-        s["volumes_per_sec"] = (
-            s["requests"] / s["device_s"] if s["device_s"] > 0 else 0.0)
         return s
 
     def close(self) -> None:
@@ -162,7 +172,7 @@ class InferenceServer:
         first = self._q.get()
         if first is _STOP:
             return [], True
-        reqs = [first]
+        reqs = [self._taken(first)]
         deadline = time.perf_counter() + self.max_wait
         while len(reqs) < self.batch_size:
             left = deadline - time.perf_counter()
@@ -173,52 +183,68 @@ class InferenceServer:
                 break
             if nxt is _STOP:
                 return reqs, True
-            reqs.append(nxt)
+            reqs.append(self._taken(nxt))
         return reqs, False
+
+    @staticmethod
+    def _taken(req):
+        """The queued request ``req``, its stamp (if traced) closed now."""
+        if req[2] is not None:
+            req[2].append(tracing.now_ns())
+        return req
 
     def _fail(self, reqs, exc) -> None:
         with self._lock:
             self._stats["errors"] += 1
-        for _, fut in reqs:
+        for _, fut, _ in reqs:
             fut.set_exception(exc)
 
-    def _launch(self, reqs: List, t0: float):
+    def _launch(self, reqs: List):
         """Queue one padded batch on the device without a host sync.
-        Returns (reqs, device joints, t0), or None after failing the
+        Returns (reqs, device joints, batch id), or None after failing the
         requests' futures."""
+        bid = tracing.new_id()
+        if tracing.enabled():
+            for _, _, stamp in reqs:
+                if stamp is not None:
+                    tracing.record("serve.queue", stamp[1], stamp[2],
+                                   id=stamp[0], parent=bid)
         try:
-            meas = np.stack(
-                [m for m, _ in reqs]
-                + [reqs[-1][0]] * (self.batch_size - len(reqs)))
-            x = torch.from_numpy(meas).to(self._transfer_dtype)
-            if self.device.type == "cuda":
-                x = x.pin_memory().to(self.device, non_blocking=True)
-            else:
-                x = x.to(self.device)
-            joints, _ = self._forward(x, self.lct)
-            return reqs, joints, t0
+            with tracing.span("serve.pack", bid):
+                meas = np.stack(
+                    [m for m, _, _ in reqs]
+                    + [reqs[-1][0]] * (self.batch_size - len(reqs)))
+                x = torch.from_numpy(meas).to(self._transfer_dtype)
+                if self._cuda:
+                    x = x.pin_memory()
+                with tracing.span("serve.h2d", bid, device=self._cuda):
+                    x = x.to(self.device, non_blocking=self._cuda)
+            with tracing.span("serve.forward", bid, device=self._cuda,
+                              stages=True):
+                joints, _ = self._forward(x, self.lct)
+            return reqs, joints, bid
         except Exception as e:  # launch failures resolve the futures
             self._fail(reqs, e)
             return None
 
     def _resolve(self, pending) -> None:
-        reqs, joints, t0 = pending
+        reqs, joints, bid = pending
         n = len(reqs)
         try:
             # the device -> host copy is the completion fence
-            joints = joints.cpu().numpy().astype(np.float32)
+            with tracing.span("serve.fetch", bid):
+                joints = joints.cpu()
+            joints = joints.numpy().astype(np.float32)
             # (B, J*3) flat (x, y, z) triplets -> (B, J, 3)
             joints = joints.reshape(self.batch_size, -1, 3)
         except Exception as e:  # execution faults surface at the fetch
             self._fail(reqs, e)
             return
-        dt = time.perf_counter() - t0
         with self._lock:
             self._stats["requests"] += n
             self._stats["batches"] += 1
             self._stats["padded"] += self.batch_size - n
-            self._stats["device_s"] += dt
-        for i, (_, fut) in enumerate(reqs):
+        for i, (_, fut, _) in enumerate(reqs):
             fut.set_result({"joints": joints[i]})
 
     def _drain_nowait(self, reqs: List) -> bool:
@@ -230,7 +256,7 @@ class InferenceServer:
                 return False
             if nxt is _STOP:
                 return True
-            reqs.append(nxt)
+            reqs.append(self._taken(nxt))
         return False
 
     def _run(self) -> None:
@@ -244,8 +270,7 @@ class InferenceServer:
                 # waiting; else resolve the in-flight one first.
                 reqs = []
                 stop = self._drain_nowait(reqs)
-            launched = (self._launch(reqs, time.perf_counter())
-                        if reqs else None)
+            launched = self._launch(reqs) if reqs else None
             if pending is not None:
                 self._resolve(pending)
             pending = launched
@@ -257,6 +282,6 @@ class InferenceServer:
             self._drain_nowait(reqs)
             if not reqs:
                 return
-            launched = self._launch(reqs, time.perf_counter())
+            launched = self._launch(reqs)
             if launched is not None:
                 self._resolve(launched)

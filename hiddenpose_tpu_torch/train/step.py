@@ -49,6 +49,7 @@ from hiddenpose_tpu_torch.parallel.mesh import (
     mean_over_data,
 )
 from hiddenpose_tpu_torch.train.state import TrainState
+from hiddenpose_tpu_torch.utils import tracing
 
 Batch = Dict[str, torch.Tensor]
 # Batch fields: meas (B, 1, T, H, W), vol (B, 1, D, H, W),
@@ -106,22 +107,28 @@ def make_train_step(model: NlosPose, matmul_precision: str = "highest",
         if state.model is not model:
             raise ValueError("state.model is not the model of this step")
         model.train()
+        # with tracing on: the step's host and device spans
+        sid = tracing.new_id()
+        cuda = tracing.enabled() and batch["meas"].is_cuda
         with precision_scope(model, matmul_precision), data_parallel(mesh):
-            heatmaps, refine = model(batch["meas"], lct)
-            joint_loss = l2_joint_location_loss(
-                heatmaps, batch["joints"], batch["joints_vis"])
-            b = refine.shape[0]
-            voxel_loss = bce_dice_loss(refine.reshape(b, -1),
-                                       batch["vol"].reshape(b, -1))
-            loss = joint_loss + voxel_loss
+            with tracing.span("step.forward", sid, device=cuda):
+                heatmaps, refine = model(batch["meas"], lct)
+                joint_loss = l2_joint_location_loss(
+                    heatmaps, batch["joints"], batch["joints_vis"])
+                b = refine.shape[0]
+                voxel_loss = bce_dice_loss(refine.reshape(b, -1),
+                                           batch["vol"].reshape(b, -1))
+                loss = joint_loss + voxel_loss
             state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with tracing.span("step.backward", sid, device=cuda):
+                loss.backward()
         metrics = torch.stack([loss, joint_loss, voxel_loss]).detach()
         if mesh is not None:
             average_gradients([p for g in state.optimizer.param_groups
                                for p in g["params"]], mesh)
             metrics = mean_over_data(metrics, mesh)
-        state.apply_gradients()
+        with tracing.span("step.adam", sid, device=cuda):
+            state.apply_gradients()
         return dict(zip(("loss", "joint_loss", "voxel_loss"), metrics))
 
     return train_step
@@ -152,6 +159,8 @@ def make_forward(model: NlosPose):
     def forward(meas: torch.Tensor, lct: LCTParams):
         with torch.inference_mode():
             heatmaps, _ = model(meas, lct)
-            return softmax_integral(heatmaps, heatmaps.shape[1]), heatmaps
+            joints = softmax_integral(heatmaps, heatmaps.shape[1])
+            tracing.stage(None)     # ends a traced forward's head stage
+            return joints, heatmaps
 
     return forward

@@ -1,0 +1,8 @@
+"""Device ms of a train step's Adam update (``step.adam``), mean over the
+window's steps."""
+from hpbench import spans
+from hpbench.spans import prepare  # noqa: F401
+
+
+def read(run):
+    return spans.device_ms(run, "step.adam")

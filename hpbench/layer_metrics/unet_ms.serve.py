@@ -1,0 +1,8 @@
+"""Device ms a batch in the UNet3d (``stage.unet``), mean over the
+window's batches."""
+from hpbench import spans
+from hpbench.spans import prepare  # noqa: F401
+
+
+def read(run):
+    return spans.device_ms(run, "stage.unet")

@@ -78,6 +78,7 @@ MODULES = [
     "hiddenpose_tpu_torch.parallel.distributed",
     "hiddenpose_tpu_torch.parallel.sharding_rules",
     "hiddenpose_tpu_torch.utils.remat",
+    "hiddenpose_tpu_torch.utils.tracing",
     "hiddenpose_tpu_torch.graft_entry",
 ]
 # packages the GPU host does not have, which the JAX package's data, log
