@@ -9,16 +9,22 @@ futures.
 
 The pipeline is one batch deep, as in the JAX package: CUDA launches are
 asynchronous, so the pump launches batch N+1 (a pinned-memory copy and the
-forward, with no host sync) before it fetches batch N's joints.  That fetch
-is queued on the same stream behind N+1's forward, so the host packs batch
-N+2 only after the device has finished N+1, and the device idles while it
-does.  All device work stays on the pump thread; callers only touch numpy
-and futures.
+forward, with no host sync) before it fetches batch N's joints.  Each
+launch also queues its batch's fence: the joints' copy into pinned host
+memory and a CUDA event behind it (``_fence``).  The fetch of N waits on
+N's own event, which passes when N's forward ends, not on the stream,
+where N+1's forward is queued behind it; so the pump packs and launches
+N+2 while the device still runs N+1, and the device goes from one
+forward to the next without waiting on the host.
+``stats()['overlapped']`` counts the batches whose launch ended before the
+previous batch's event passed.  On the CPU there is no fence and the
+fetch is a plain copy.  All device work stays on the pump thread; callers
+only touch numpy and futures.
 
 With ``utils/tracing.py`` on, the server records each request's
 ``serve.queue`` span and each batch's ``serve.pack``, ``serve.h2d``,
-``serve.forward`` and ``serve.fetch`` spans, and the forward's device
-stages.
+``serve.forward`` and ``serve.fetch`` (the wait on the batch's fence)
+spans, and the forward's device stages.
 
 The default ``dtype`` is "bfloat16", the JAX server's default
 (``Config.with_bf16()``'s mixed precision); "float32" is the parity path.
@@ -102,7 +108,7 @@ class InferenceServer:
         self._q: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()
         self._stats = dict(
-            requests=0, batches=0, padded=0, errors=0)
+            requests=0, batches=0, padded=0, errors=0, overlapped=0)
         self._closed = False
         self._pump = threading.Thread(
             target=self._run, name="hp-serve-pump", daemon=True)
@@ -140,8 +146,9 @@ class InferenceServer:
         self.submit(np.zeros(self._meas_shape, np.float32)).result()
 
     def stats(self) -> Dict[str, float]:
-        """Counters (requests, batches, padded slots, failed batches) and
-        ``mean_fill``, the requests over the batches' slots."""
+        """Counters (requests, batches, padded slots, failed batches,
+        batches launched while the previous one still ran on the device)
+        and ``mean_fill``, the requests over the batches' slots."""
         with self._lock:
             s = dict(self._stats)
         s["mean_fill"] = (
@@ -199,10 +206,23 @@ class InferenceServer:
         for _, fut, _ in reqs:
             fut.set_exception(exc)
 
-    def _launch(self, reqs: List):
+    def _fence(self, joints):
+        """Queue the joints' copy to the host and the event that marks its
+        end: (pinned host joints, event), or None on the CPU."""
+        if not self._cuda:
+            return None
+        host = torch.empty(joints.shape, dtype=joints.dtype, pin_memory=True)
+        host.copy_(joints, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
+    def _launch(self, reqs: List, pending=None):
         """Queue one padded batch on the device without a host sync.
-        Returns (reqs, device joints, batch id), or None after failing the
-        requests' futures."""
+        Returns (reqs, device joints, batch id, fence, overlapped), or
+        None after failing the requests' futures.  ``pending``: the batch
+        in flight; ``overlapped`` is whether its fence had not yet passed
+        when this launch ended (counted with the batch, in ``_resolve``)."""
         bid = tracing.new_id()
         if tracing.enabled():
             for _, _, stamp in reqs:
@@ -222,18 +242,26 @@ class InferenceServer:
             with tracing.span("serve.forward", bid, device=self._cuda,
                               stages=True):
                 joints, _ = self._forward(x, self.lct)
-            return reqs, joints, bid
+            fence = self._fence(joints)
+            overlapped = (pending is not None and pending[3] is not None
+                          and not pending[3][1].query())
         except Exception as e:  # launch failures resolve the futures
             self._fail(reqs, e)
             return None
+        return reqs, joints, bid, fence, overlapped
 
     def _resolve(self, pending) -> None:
-        reqs, joints, bid = pending
+        reqs, joints, bid, fence, overlapped = pending
         n = len(reqs)
         try:
-            # the device -> host copy is the completion fence
+            # the batch's own fence, or on the CPU the copy itself
             with tracing.span("serve.fetch", bid):
-                joints = joints.cpu()
+                if fence is None:
+                    joints = joints.cpu()
+                else:
+                    joints, event = fence
+                    event.synchronize()
+            # a copy: the answers alias no buffer the pump reuses
             joints = joints.numpy().astype(np.float32)
             # (B, J*3) flat (x, y, z) triplets -> (B, J, 3)
             joints = joints.reshape(self.batch_size, -1, 3)
@@ -244,6 +272,7 @@ class InferenceServer:
             self._stats["requests"] += n
             self._stats["batches"] += 1
             self._stats["padded"] += self.batch_size - n
+            self._stats["overlapped"] += overlapped
         for i, (_, fut, _) in enumerate(reqs):
             fut.set_result({"joints": joints[i]})
 
@@ -270,7 +299,7 @@ class InferenceServer:
                 # waiting; else resolve the in-flight one first.
                 reqs = []
                 stop = self._drain_nowait(reqs)
-            launched = self._launch(reqs) if reqs else None
+            launched = self._launch(reqs, pending) if reqs else None
             if pending is not None:
                 self._resolve(pending)
             pending = launched

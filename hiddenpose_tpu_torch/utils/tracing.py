@@ -20,7 +20,8 @@ Spans the port records:
   the batch), and for each batch ``serve.pack`` (stack, cast, pin and the
   enqueue of the host-to-device copy), ``serve.h2d`` (the copy; a device
   span), ``serve.forward`` (the enqueue of the forward; a device span too)
-  and ``serve.fetch`` (the host blocked on the joints' copy back).
+  and ``serve.fetch`` (the host blocked on the batch's fence: on the GPU
+  the event behind the joints' copy back, on the CPU the copy).
 * Inside a serving forward only, the device stages ``stage.recon``
   (FeatureExtraction, the LCT, normalisation), ``stage.unet``,
   ``stage.trunk`` (PoseNet3D's stem and layer1-4) and ``stage.head`` (the

@@ -4,7 +4,11 @@
 identical to a direct forward however requests pack into batches, partial
 batches flush padded, concurrent submitters all resolve, close() drains.
 And on the same (bridged) weights the port's server returns the JAX
-server's joints, within 1e-4 voxel (f32 on both sides).  These are the
+server's joints, within 1e-4 voxel (f32 on both sides).  A CPU server
+has no CUDA fence; stand-in fences (``InferenceServer._fence``) take it
+down the GPU's fenced path, where each batch is resolved on its own
+fence after the next batch is launched (the GPU run of that path:
+``tests/test_torch_serve_cuda.py``).  These are the
 float32 server's contract, so the servers here ask for ``dtype="float32"``
 (both servers default to bf16: ``tests/test_torch_bf16_serve.py``).
 
@@ -145,3 +149,67 @@ def test_matches_jax_server_on_bridged_weights():
     assert _spread(want) > MIN_SPREAD
     np.testing.assert_allclose(np.stack(got), np.stack(want), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("passed", [False, True])
+def test_each_batch_waits_on_its_own_fence(monkeypatch, passed):
+    """Three full batches on stand-in fences whose events report
+    ``passed`` when queried: batch N+1 is launched before N is resolved,
+    N's answers come back on N's fence before N+1's is waited on, and the
+    launches made while the previous fence had not passed are counted."""
+    log = []
+    ready = threading.Event()
+
+    class Event:
+        made = 0
+
+        def __init__(self):
+            self.k = Event.made
+            Event.made += 1
+            log.append(("fence", self.k))
+
+        def query(self):
+            return passed
+
+        def synchronize(self):
+            log.append(("wait", self.k))
+
+    def fence(self, joints):
+        ready.wait(timeout=60)  # the first launch waits for every request
+        return joints.clone(), Event()
+
+    monkeypatch.setattr(InferenceServer, "_fence", fence)
+    b, n = 4, 12
+    with torch.device("meta"):  # names and shapes only
+        template = NlosPose(CFG.model)
+    srv = InferenceServer(CFG, peaked_state_dict(template, seed=1),
+                          batch_size=b, dtype="float32", max_wait_ms=5000.0,
+                          device="cpu")
+    try:
+        futs = [srv.submit(_meas(500 + i)) for i in range(n)]
+        for i, f in enumerate(futs):
+            f.add_done_callback(lambda _f, i=i: log.append(("done", i)))
+        ready.set()
+        got = [f.result(timeout=300)["joints"] for f in futs]
+        stats = srv.stats()
+    finally:
+        srv.close()
+    waits = [k for what, k in log if what == "wait"]
+    assert waits == [0, 1, 2], log
+    at = {entry: i for i, entry in enumerate(log)}
+    for k in range(n // b):
+        if k + 1 < n // b:
+            assert at[("fence", k + 1)] < at[("wait", k)], log
+        end = at.get(("wait", k + 1), len(log))
+        for i in range(k * b, (k + 1) * b):
+            assert at[("wait", k)] < at[("done", i)] < end, log
+    assert stats["batches"] == n // b and stats["padded"] == 0
+    assert stats["overlapped"] == (0 if passed else n // b - 1)
+    assert _spread(got) > MIN_SPREAD
+    fwd = make_forward(srv.model)
+    for k in range(n // b):
+        x = torch.from_numpy(np.stack([_meas(500 + i)
+                                       for i in range(k * b, (k + 1) * b)]))
+        want = fwd(x, srv.lct)[0].reshape(b, -1, 3).numpy()
+        np.testing.assert_allclose(np.stack(got[k * b:(k + 1) * b]), want,
+                                   rtol=1e-5, atol=1e-5)
